@@ -13,7 +13,13 @@ printing a result:
   3. kernels vs their plain PyTorch twins on the card, bit for bit, at the
      flagship grid (P=1956 rows, K=512 lanes) on random and on
      real-table inputs, plus a small stream coded on the CPU as reference;
-     CUDA-event timings of kernel and twin;
+     CUDA-event timings of kernel and twin, and ns per row; then the decode
+     edge cases (the widest Gaussian row alone, every lane renormalising
+     in every row so the stream ring wraps, K in {32, 64, 1024}, stages of
+     P=0 and P=1 rows, the flagship stages with symbols drawn from each
+     row's distribution, the batch-8 grid of 15,648 rows, and the
+     global-table path), each coded on the card and decoded by kernel and
+     twin;
   4. the main path at full width: ModelConfig() with seeded random
      weights, a seeded 768x512 image, compress -> serialize -> deserialize
      -> decompress at q in {0, 5, 10} (batch 1) and q=10 (batch 8), and an
@@ -84,11 +90,14 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def flagship_stages(tables, row0, rng, batch=1):
+def flagship_stages(tables, row0, rng, batch=1, from_pmf=False):
     """Stages shaped like the flagship round trip at q>0: z (B*8*12*192
     symbols on the bottleneck rows), 10 base slices and one stacked
     enhancement stage (B*32*48*32 and 10x that, on the Gaussian rows),
-    symbols drawn inside each row's support plus ~1% escapes."""
+    symbols drawn uniformly inside each row's support plus ~1% escapes.
+    With `from_pmf`, each symbol is drawn from its row's own distribution
+    instead (cum uniform, as for data the model predicts well) and there
+    are no escapes."""
     sizes = [(batch * 8 * 12 * 192, "z", 1.0)] + [(batch * 32 * 48 * 32, "base", 1.0)] * 10
     sizes.append((batch * 10 * 32 * 48 * 32, "prog", 0.5))
     n_rows = tables.cdf.shape[0]
@@ -100,13 +109,31 @@ def flagship_stages(tables, row0, rng, batch=1):
             idx = rng.integers(row0, n_rows, n).astype(np.int32)
         lo = tables.offset[idx].astype(np.int64)
         hi = lo + tables.max_symbol[idx]
-        sym = np.floor(lo + rng.random(n) * (hi - lo + 1)).astype(np.int64)
-        esc = rng.random(n) < 0.01
-        sym[esc] = hi[esc] + rng.integers(1, 1000, esc.sum())
+        if from_pmf:
+            # the symbol whose CDF range holds a uniform cum, kept in support
+            cum = rng.integers(0, 1 << 16, n)
+            sym = np.empty(n, np.int64)
+            for r in np.unique(idx):
+                at = idx == r
+                row = tables.cdf[r, : tables.cdf_length[r] - 1]
+                sym[at] = np.minimum(np.searchsorted(row, cum[at], side="right") - 1,
+                                     tables.max_symbol[r])
+            sym += lo
+        else:
+            sym = np.floor(lo + rng.random(n) * (hi - lo + 1)).astype(np.int64)
+            esc = rng.random(n) < 0.01
+            sym[esc] = hi[esc] + rng.integers(1, 1000, esc.sum())
         keep = rng.random(n) < keep_frac
         stages.append(tuple(torch.from_numpy(a) for a in
                             (sym.astype(np.int32), idx, keep)))
     return stages
+
+
+def stage_rows(codec, n_stages):
+    """CDF row range of each flagship stage: z on the bottleneck rows, the
+    rest on the Gaussian rows."""
+    r = codec.device_tables.offset.shape[0]
+    return [(0, codec.gauss_row0)] + [(codec.gauss_row0, r)] * (n_stages - 1)
 
 
 def check_kernels(codec, dev):
@@ -164,12 +191,14 @@ def check_kernels(codec, dev):
     for s_sym, s_idx, s_keep in dev_stages:
         grids.append((rans_device._pad_to_grid(s_idx, LANES),
                       rans_device._pad_to_grid(s_keep.to(torch.uint8), LANES)))
+    rows_of = stage_rows(codec, len(grids))
     dec_err = 0
     dec0 = rans_device.decoder_init(stream, LANES)
     dec = dec0
     kept = 0
-    for (s_sym, s_idx, s_keep), (ig, kg) in zip(dev_stages, grids):
-        got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
+    for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dev_stages, grids, rows_of):
+        got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf,
+                                         t.compact, rows)
         torch.cuda.synchronize()
         want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
         err = max_abs_err(got, want)
@@ -185,15 +214,23 @@ def check_kernels(codec, dev):
     require(int(dec.offset) == int(n_words), "decoder did not consume the whole payload")
     log(f"  decode scan, 12 flagship-table stages: kernel == plain twin, values exact, stream_ok")
 
-    def dec_all(fn):
+    def dec_all(plain):
         d = dec0
-        for ig, kg in grids:
-            s, o, _ = fn(d.states, d.offset, stream, ig, kg, t.dec_sf)
+        for (ig, kg), rows in zip(grids, rows_of):
+            if plain:
+                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offset, stream, ig, kg, t.dec_sf)
+            else:
+                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
+                                                     t.compact, rows)
             d = rans_device.DecoderState(s, o, d.esc_offset)
 
-    dec_ms = cuda_time_ms(lambda: dec_all(rans_cuda.rans_decode_scan), reps=10)
-    dec_plain_ms = cuda_time_ms(lambda: dec_all(rans_cuda.rans_decode_scan_plain),
-                                reps=1, warmup=1)
+    dec_ms = cuda_time_ms(lambda: dec_all(False), reps=10)
+    dec_plain_ms = cuda_time_ms(lambda: dec_all(True), reps=1, warmup=1)
+    for rows in sorted(set(rows_of)):
+        plan = rans_cuda.plan_decode(t.compact, rows, LANES, rans_cuda._smem_optin(0))
+        log(f"  decode plan, CDF rows {rows}: {plan.smem_bytes} bytes of dynamic shared memory "
+            f"per CTA, table in shared memory {plan.table_in_smem}, bucket shift {plan.shift}, "
+            f"stream ring {plan.ring_words} words")
 
     # a small stream coded on the CPU (plain twins) is the reference for the
     # same stream coded on the card (kernels)
@@ -209,8 +246,13 @@ def check_kernels(codec, dev):
     cells = 1956 * LANES
     consumed = int(n_words) - 2 * LANES
     enc_bytes = cells * (4 + 1 + 2 + 1) + 4 * LANES
-    enc_ops = cells * 30  # renorm test, shifts, masks and a 32-bit divmod
-    dec_bytes = cells * (4 + 1 + 4) + kept * 4 + consumed * 2 + 12 * 8 * LANES
+    enc_ops = cells * 30  # renorm test, shifts, masks and the magic-multiplier divmod
+    # each stage reads its CDF rows' compact table once (starts and buckets)
+    table_bytes = 0
+    for rows in rows_of:
+        plan = rans_cuda.plan_decode(t.compact, rows, LANES, rans_cuda._smem_optin(0))
+        table_bytes += 2 * plan.span_len + 2 * plan.nrows * plan.bucket_stride + 8 * plan.nrows
+    dec_bytes = cells * (4 + 1 + 4) + table_bytes + consumed * 2 + 12 * 8 * LANES
     dec_ops = cells * 12
     results["rans_encode_scan"] = dict(
         ms=enc_ms, plain_ms=enc_plain_ms, max_abs_err=enc_err,
@@ -223,9 +265,103 @@ def check_kernels(codec, dev):
         bound_by="bytes" if dec_bytes / MEM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S else "operations",
     )
     for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain twin {r['plain_ms']:.2f} ms, "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        log(f"  {name}: kernel {r['ms']:.4f} ms ({1e6 * r['ms'] / 1956:.1f} ns per row), "
+            f"plain twin {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
+
+
+def decode_case(label, codec, stages, rows_of, lanes, dev, smem_cap=None, want_ok=True):
+    """Code `stages` on the card (encode kernel vs twin), then decode every
+    stage with the decode kernel and its twin; all bit for bit.  Returns
+    (rows decoded, kernel ms for all stages)."""
+    from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
+
+    t = codec.device_tables
+    dstages = [tuple(a.to(dev) for a in s) for s in stages]
+    sf_rev, kp_rev, esc_flags, sym = rans_device.encode_prepare(dstages, t, lanes)
+    enc = rans_cuda.rans_encode_scan(sf_rev, kp_rev)
+    torch.cuda.synchronize()
+    err = max_abs_err(enc, rans_cuda.rans_encode_scan_plain(sf_rev, kp_rev))
+    require(err == 0, f"{label}: encode kernel != plain twin: max|d| {err}")
+    stream, n_words, _, _ = rans_device.encode_finalize(*enc, esc_flags, sym, lanes)
+    stream = stream[: int(n_words)]
+    grids = [(rans_device._pad_to_grid(s_idx, lanes),
+              rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes)) for _, s_idx, s_keep in dstages]
+    dec0 = rans_device.decoder_init(stream, lanes)
+    dec = dec0
+    for (ig, kg), rows in zip(grids, rows_of):
+        got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf,
+                                         t.compact, rows, smem_cap=smem_cap)
+        torch.cuda.synchronize()
+        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
+        err = max_abs_err(got, want)
+        require(err == 0, f"{label}: decode kernel != plain twin: max|d| {err}")
+        dec = rans_device.DecoderState(got[0], got[1], dec.esc_offset)
+    if want_ok:
+        require(bool(rans_device.stream_ok(dec)) and int(dec.offset) == int(n_words),
+                f"{label}: stream_ok is False")
+
+    def run():
+        d = dec0
+        for (ig, kg), rows in zip(grids, rows_of):
+            s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
+                                                 t.compact, rows, smem_cap=smem_cap)
+            d = rans_device.DecoderState(s, o, d.esc_offset)
+
+    n_rows = sum(ig.shape[0] for ig, _ in grids)
+    ms = cuda_time_ms(run, reps=3, warmup=1)
+    per_row = f"{1e6 * ms / n_rows:.1f} ns per row" if n_rows else "no rows"
+    log(f"  decode case {label}: P={n_rows} K={lanes}, {int(n_words)} words: encode and decode "
+        f"kernels == plain twins, stream_ok; decode {ms:.4f} ms ({per_row})")
+    return n_rows, ms
+
+
+def check_decode_cases(codec, dev):
+    """Phase 3, second part: the decode kernel's edge cases."""
+    from progressivecodec_tpu_torch.coder import rans_cuda
+
+    tables = codec._tables
+    t = codec.device_tables
+    row0, r = codec.gauss_row0, tables.cdf.shape[0]
+    rng = np.random.default_rng(SEED + 2)
+    gauss = (row0, r)
+
+    def one_row_stage(row, n, escape):
+        lo = int(tables.offset[row])
+        hi = lo + int(tables.max_symbol[row])
+        sym = (np.full(n, hi + 1000) if escape else rng.integers(lo, hi + 1, n)).astype(np.int32)
+        return tuple(torch.from_numpy(a) for a in
+                     (sym, np.full(n, row, np.int32), np.ones(n, bool)))
+
+    widest = row0 + int(np.argmax(tables.cdf_length[row0:]))
+    narrowest = row0 + int(np.argmin(tables.cdf_length[row0:]))
+    decode_case(f"widest Gaussian row {widest} alone", codec,
+                [one_row_stage(widest, 200 * LANES, False)], [(widest, widest + 1)], LANES, dev)
+    decode_case("every lane renormalising in every row (ring wraps)", codec,
+                [one_row_stage(narrowest, 300 * LANES, True)], [gauss], LANES, dev)
+    small = flagship_stages(tables, row0, np.random.default_rng(SEED + 3))
+    small = [small[0], small[1], tuple(a[:50_000] for a in small[-1])]
+    for lanes in (32, 64, 1024):
+        decode_case(f"z, one base slice, part of the enhancement at K={lanes}", codec, small,
+                    stage_rows(codec, 3), lanes, dev)
+    decode_case("stages of P=1, P=0 and P=1 rows", codec,
+                [one_row_stage(widest, 300, False), one_row_stage(widest, 0, False),
+                 one_row_stage(narrowest, LANES, False)], [gauss] * 3, LANES, dev)
+    pmf = flagship_stages(tables, row0, np.random.default_rng(SEED + 6), from_pmf=True)
+    decode_case("flagship-table stages, symbols drawn from each row's distribution", codec, pmf,
+                stage_rows(codec, len(pmf)), LANES, dev)
+    b8 = flagship_stages(tables, row0, np.random.default_rng(SEED + 4), batch=8)
+    rows8, ms8 = decode_case("batch-8 flagship grid", codec, b8, stage_rows(codec, len(b8)),
+                             LANES, dev)
+    require(rows8 == 15_648, f"batch-8 grid has {rows8} rows, want 15,648")
+    flag3 = flagship_stages(tables, row0, np.random.default_rng(SEED + 5))[:3]
+    cap = max(rans_cuda.decode_smem_bytes(LANES, 1, 0, 0, plan.ring_words, False)
+              for plan in [rans_cuda.plan_decode(t.compact, gauss, LANES, 1 << 30)])
+    for rows in stage_rows(codec, 3):
+        require(not rans_cuda.plan_decode(t.compact, rows, LANES, cap).table_in_smem,
+                "the global-table case did not select the global-table path")
+    decode_case("global-table path (rings-only shared memory), z and two base slices", codec,
+                flag3, stage_rows(codec, 3), LANES, dev, smem_cap=cap)
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +452,7 @@ def main() -> int:
     log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "entry function" in line:
                 log(f"  {name}: {line.strip()}")
 
     log("phase 3: kernels vs plain twins")
@@ -329,6 +465,7 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  flagship model {n_params} parameters, tables built in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(codec, dev)
+    check_decode_cases(codec, dev)
 
     log("phase 4: main path, flagship ModelConfig() at 768x512")
     x1 = torch.from_numpy(synthetic_image(1, SEED)).to(dev)

@@ -14,12 +14,19 @@ Unsigned 32-bit quantities travel as int32 bit patterns, 16-bit words as
 int16 bit patterns and flags as uint8, because PyTorch implements almost
 nothing for torch.uint32.  The twins compute in int64 and mask to 32 bits;
 the kernels read the same bits as uint32_t / uint16_t.
+
+The decode kernel finds each symbol in a compact CDF table that it brings
+into shared memory (`plan_decode` sizes it); its twin reads the 64 MiB
+`dec_sf` table, so the two reach the symbol by different routes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from progressivecodec_tpu_torch import build
@@ -67,6 +74,17 @@ def _stream(device) -> _VP:
     return _VP(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernels copy rows 16 bytes at a time: a tensor whose data does
+    not start on a 16-byte boundary is copied to one that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    return int(torch.cuda.get_device_properties(index).shared_memory_per_block_optin)
+
+
 # ---------------------------------------------------------------------------
 # encode scan
 # ---------------------------------------------------------------------------
@@ -97,7 +115,7 @@ def rans_encode_scan_plain(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
 
 def rans_encode_scan(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
     """Same contract as `rans_encode_scan_plain`; launches the CUDA kernel
-    for CUDA tensors."""
+    (CTAs of 32 lanes; needs K % 32 == 0) for CUDA tensors."""
     dev = sf_rev.device
     _check("sf_rev", sf_rev, torch.int32, 2, dev)
     _check("kp_rev", kp_rev, torch.uint8, 2, dev)
@@ -108,6 +126,9 @@ def rans_encode_scan(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
     if dev.type != "cuda":
         raise ValueError(f"rans_encode_scan: unsupported device {dev}")
     p, k = sf_rev.shape
+    if k % 32 or k < 32:
+        raise ValueError(f"rans_encode_scan kernel needs lanes a positive multiple of 32; got {k}")
+    sf_rev, kp_rev = _aligned(sf_rev), _aligned(kp_rev)
     states = torch.empty((k,), dtype=torch.int32, device=dev)
     words = torch.empty((p, k), dtype=torch.int16, device=dev)
     flags = torch.empty((p, k), dtype=torch.uint8, device=dev)
@@ -162,10 +183,140 @@ def rans_decode_scan_plain(states: torch.Tensor, offset: torch.Tensor, stream: t
     return to_i32(x), off.reshape(1).to(torch.int32), cums
 
 
+# Constants shared with csrc/rans_decode.cu.
+DECODE_REFILL = 4  # rows from a ring refill to the next (kRefill)
+DECODE_SLOTS = 2 * DECODE_REFILL + 1  # rows of idx / keep in the ring (kSlots)
+STREAM_CHUNK = 256  # stream words per warp copy (kChunk)
+SHIFTS = range(6, 17)  # bucket widths 2^6 .. 2^16 cums
+RUN_FLAG = 1 << 15  # bucket of freq-1 symbols only (kRunFlag)
+
+
+def bucket_stride(shift: int) -> int:
+    """Entries per row of the bucket table at `shift`: 2^(16-shift) buckets
+    and the row's last symbol, padded to a multiple of 8."""
+    return ((1 << (16 - shift)) + 1 + 7) // 8 * 8
+
+
+class CompactCdf(NamedTuple):
+    """The decode kernel's symbol lookup tables.
+
+    starts: (E,) int16 bits.  Row r holds its n_r + 1 CDF entries (symbol
+        starts, then 65536 stored as 0) from starts[base_r], rows padded to
+        multiples of 8 entries.
+    buckets: flat int16 bits, one (R, bucket_stride(s)) table per shift s in
+        SHIFTS, from bucket_base[s].  Entry [r, b] is the symbol whose range
+        holds cum = b << s for b < 2^(16-s), then n_r - 1; bit 15
+        (RUN_FLAG) marks a bucket whose cums all fall in symbols of freq 1,
+        where the symbol's start is cum itself.
+    meta: (R, 2) int32 {base_r, n_r}.
+    row_base: (R + 1,) host int64 copy of the bases, so that the entries of a
+        row range are known without a device-to-host copy.
+    bucket_base: {shift: first entry of its table in buckets}.
+    """
+
+    starts: torch.Tensor
+    buckets: torch.Tensor
+    meta: torch.Tensor
+    row_base: np.ndarray
+    bucket_base: dict
+
+
+def compact_cdf(cdf: np.ndarray, cdf_length: np.ndarray, device) -> CompactCdf:
+    """Build `CompactCdf` from a padded CDF matrix (R, Lmax) whose row r holds
+    n_r = cdf_length[r] - 1 symbols, cdf[r, n_r] = 65536."""
+    cdf = np.asarray(cdf, dtype=np.int64)
+    n = np.asarray(cdf_length, dtype=np.int64) - 1
+    r = cdf.shape[0]
+    base = np.zeros(r + 1, dtype=np.int64)
+    base[1:] = np.cumsum((n + 1 + 7) // 8 * 8)
+    starts = np.zeros(int(base[-1]), dtype=np.uint16)
+    if n.max() >= RUN_FLAG:
+        raise ValueError(f"a CDF row has {n.max()} symbols; the bucket table holds < {RUN_FLAG}")
+    tables, bucket_base, acc = [], {}, 0
+    for shift in SHIFTS:
+        nb = 1 << (16 - shift)
+        tab = np.empty((r, bucket_stride(shift)), dtype=np.uint16)
+        probe = np.arange(nb, dtype=np.int64) << shift
+        for i in range(r):
+            row = cdf[i, : n[i] + 1]
+            lo = np.searchsorted(row[: n[i]], probe, side="right") - 1
+            hi = np.searchsorted(row[: n[i]], probe + (1 << shift) - 1, side="right") - 1
+            ones = np.concatenate([[0], np.cumsum(np.diff(row) == 1)])
+            run = ones[hi + 1] - ones[lo] == hi - lo + 1
+            tab[i, :nb] = lo | np.where(run, RUN_FLAG, 0)
+            tab[i, nb:] = n[i] - 1
+        tables.append(tab.reshape(-1))
+        bucket_base[shift] = acc
+        acc += tab.size
+    for i in range(r):
+        starts[base[i] : base[i] + n[i] + 1] = cdf[i, : n[i] + 1] & 0xFFFF
+    meta = np.stack([base[:-1], n], axis=1).astype(np.int32)
+    return CompactCdf(
+        starts=torch.from_numpy(starts.view(np.int16)).to(device),
+        buckets=torch.from_numpy(np.concatenate(tables).view(np.int16)).to(device),
+        meta=torch.from_numpy(meta).to(device),
+        row_base=base,
+        bucket_base=bucket_base,
+    )
+
+
+class DecodePlan(NamedTuple):
+    """How one decode launch lays out its dynamic shared memory."""
+
+    row0: int
+    nrows: int
+    span_base: int  # first entry of the rows in CompactCdf.starts
+    span_len: int
+    shift: int  # cum >> shift picks the bucket
+    bucket_stride: int
+    ring_words: int  # stream ring
+    table_in_smem: bool  # False: the search reads the table in global memory
+    smem_bytes: int
+
+
+def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_in_smem) -> int:
+    """Dynamic shared memory of one decode launch; the layout of
+    csrc/rans_decode.cu (`layout`)."""
+    r16 = lambda b: (b + 15) // 16 * 16  # noqa: E731
+    total = 64  # warp counts
+    if table_in_smem:
+        total += r16(nrows * 2) + r16(span_len * 2) + r16(nrows * bucket_stride * 2)
+    return total + DECODE_SLOTS * lanes * 5 + ring_words * 2
+
+
+def plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> DecodePlan:
+    """The finest bucket shift at which the stage's rows, the idx / keep
+    ring and the stream ring fit `smem_cap` bytes; else the global-table
+    path.  Raises ValueError if not even the rings fit."""
+    row0, row1 = rows
+    if not 0 <= row0 < row1 <= compact.meta.shape[0]:
+        raise ValueError(f"rows {rows} outside the table's {compact.meta.shape[0]} rows")
+    nrows = row1 - row0
+    span_base = int(compact.row_base[row0])
+    span_len = int(compact.row_base[row1]) - span_base
+    ring = 1 << (2 * DECODE_REFILL * lanes + STREAM_CHUNK - 1).bit_length()
+    for shift in SHIFTS if span_len <= 1 << 16 else ():  # u16 row bases in shared memory
+        stride = bucket_stride(shift)
+        b = decode_smem_bytes(lanes, nrows, span_len, stride, ring, True)
+        if b <= smem_cap:
+            return DecodePlan(row0, nrows, span_base, span_len, shift, stride, ring, True, b)
+    b = decode_smem_bytes(lanes, nrows, span_len, 0, ring, False)
+    if b > smem_cap:
+        raise ValueError(f"decode rings need {b} bytes of shared memory, the cap is {smem_cap}")
+    return DecodePlan(row0, nrows, span_base, span_len, 16, 0, ring, False, b)
+
+
 def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.Tensor,
-                     idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor):
+                     idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor,
+                     compact: CompactCdf | None = None, rows=None, *, smem_cap: int | None = None):
     """Same contract as `rans_decode_scan_plain`; launches the CUDA kernel
-    (one CTA of K threads; needs K % 32 == 0 and K <= 1024) for CUDA tensors."""
+    (one CTA of K threads; needs K % 32 == 0 and K <= 1024) for CUDA tensors.
+
+    The kernel looks symbols up in `compact` (required on CUDA), restricted
+    to the CDF rows [row0, row1) = `rows` (default: all), which every kept
+    cell's idx must lie in.  `smem_cap` lowers the shared-memory budget
+    (default: the card's opt-in maximum); a cap too small for the table
+    selects the global-table path."""
     dev = states.device
     _check("states", states, torch.int32, 1, dev)
     _check("offset", offset, torch.int32, 1, dev)
@@ -182,15 +333,30 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
         raise ValueError(f"rans_decode_scan: unsupported device {dev}")
     if k % 32 or not 32 <= k <= 1024:
         raise ValueError(f"rans_decode_scan kernel needs 32 <= lanes <= 1024, lanes % 32 == 0; got {k}")
+    if compact is None:
+        raise ValueError("rans_decode_scan kernel needs the CompactCdf tables")
+    _check("compact.starts", compact.starts, torch.int16, 1, dev)
+    _check("compact.buckets", compact.buckets, torch.int16, 1, dev)
+    _check("compact.meta", compact.meta, torch.int32, 2, dev)
+    cap = smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
+    plan = plan_decode(compact, rows or (0, compact.meta.shape[0]), k, cap)
+    stream, idx, kp = _aligned(stream), _aligned(idx), _aligned(kp)
+    buckets = compact.buckets.data_ptr()  # the stage's rows of the table at plan.shift
+    if plan.table_in_smem:
+        buckets += 2 * (compact.bucket_base[plan.shift] + plan.row0 * plan.bucket_stride)
     states_out = torch.empty((k,), dtype=torch.int32, device=dev)
     offset_out = torch.empty((1,), dtype=torch.int32, device=dev)
     cums = torch.empty((p, k), dtype=torch.int32, device=dev)
+    ci = ctypes.c_int
     fn = _fn("rans_decode", "rans_decode_scan",
-             [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP,
-              ctypes.c_int, ctypes.c_int, _VP])
+             [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, ci, ci, ci, ci, ci, ci,
+              ci, ci, ci, _VP, _VP, _VP, ci, ci, _VP])
     rc = fn(states.data_ptr(), offset.data_ptr(), stream.data_ptr(), stream.numel(),
-            idx.data_ptr(), kp.data_ptr(), dec_sf.data_ptr(), states_out.data_ptr(),
-            offset_out.data_ptr(), cums.data_ptr(), p, k, _stream(dev))
+            idx.data_ptr(), kp.data_ptr(), compact.starts.data_ptr(), buckets,
+            compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
+            plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
+            states_out.data_ptr(), offset_out.data_ptr(),
+            cums.data_ptr(), p, k, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"rans_decode_scan kernel launch failed: cudaError {rc}")
     rans_decode_scan.launches += 1

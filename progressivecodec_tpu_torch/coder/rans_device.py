@@ -33,9 +33,12 @@ class DeviceTables:
 
     enc_sf: (R*Lmax,) int32 bits of start<<16 | freq, indexed row*Lmax + sym.
     dec_sf: (R*2^16,) int32 bits of start<<16 | freq, indexed row<<16 | cum
-        (the decode scan's only data-dependent gather).
+        (the decode twin's symbol lookup).
     dec_val: (R*2^16,) int32 symbol value, indexed row<<16 | cum.
     offset, max_symbol: (R,) int32 per-row escape metadata.
+    compact: the decode kernel's lookup (`rans_cuda.CompactCdf`): each row's
+        CDF entries as u16 and bucket tables at 11 widths, 1.1 MiB for the
+        flagship.
     Freq is packed into 16 bits.  For the flagship R = 256, so dec_sf and
     dec_val are 64 MiB each: build them once per codec.
     """
@@ -46,6 +49,7 @@ class DeviceTables:
     lmax: int
     offset: torch.Tensor
     max_symbol: torch.Tensor
+    compact: rans_cuda.CompactCdf
 
     @staticmethod
     def from_tables(t: CoderTables, device) -> "DeviceTables":
@@ -71,6 +75,7 @@ class DeviceTables:
             lmax=lmax,
             offset=dev(t.offset.astype(np.int32)),
             max_symbol=dev(t.max_symbol.astype(np.int32)),
+            compact=rans_cuda.compact_cdf(t.cdf, t.cdf_length, device),
         )
 
 
@@ -183,15 +188,16 @@ def decoder_init(stream: torch.Tensor, lanes: int = DEFAULT_LANES) -> DecoderSta
 
 
 def decode_stage_scan(dec: DecoderState, stream, indexes_grid, keep_grid,
-                      t: DeviceTables, lanes: int = DEFAULT_LANES):
+                      t: DeviceTables, lanes: int = DEFAULT_LANES, rows=None):
     """The decode state recursion for one stage (CUDA kernel on the card).
 
-    indexes_grid (P, K) int32, keep_grid (P, K) uint8.  Returns (states,
-    offset, cums (P, K) int32)."""
+    indexes_grid (P, K) int32, keep_grid (P, K) uint8; `rows` = (row0, row1),
+    the CDF rows the stage's kept cells use (default: all), which the kernel
+    brings on chip.  Returns (states, offset, cums (P, K) int32)."""
     if indexes_grid.shape[1] != lanes:
         raise ValueError(f"grid has {indexes_grid.shape[1]} lanes, want {lanes}")
     return rans_cuda.rans_decode_scan(
-        dec.states, dec.offset, stream, indexes_grid, keep_grid, t.dec_sf
+        dec.states, dec.offset, stream, indexes_grid, keep_grid, t.dec_sf, t.compact, rows
     )
 
 

@@ -3,12 +3,13 @@
 // Replaces progressivecodec_tpu/coder/rans_device.py:decode_stage_scan, an
 // XLA lax.scan with no Pallas version (PyTorch has no scan, and a Python
 // loop would cost about ten launches per row).  Plain PyTorch twin:
-// progressivecodec_tpu_torch/coder/rans_cuda.py:rans_decode_scan_plain.
+// progressivecodec_tpu_torch/coder/rans_cuda.py:rans_decode_scan_plain,
+// which reaches each symbol through the 64 MiB dec_sf table instead.
 //
 // What it computes: K lanes walk P rows in decode order.  Per row and lane,
-// with row index idx and keep flag k:
+// with CDF row idx and keep flag k:
 //   cum  = state & 0xFFFF                      (emitted for every cell)
-//   sf   = dec_sf[(idx<<16) + cum]             (the only data-dependent gather)
+//   s    = the symbol of row idx whose [start, start + freq) holds cum
 //   adv  = freq*(state>>16) + cum - start
 //   flag = k && adv < L
 // The flagged lanes take renorm words from the shared stream in lane order:
@@ -18,18 +19,40 @@
 // Outputs: cums (P,K) i32, final states (K) and final offset.
 //
 // What bounds it: the lanes are coupled through that prefix count and the
-// shared offset, and each row waits on a dependent table gather and a
-// dependent stream read, so the time is P times the latency of one row;
-// the bytes it moves (about 9 per cell) would take a few microseconds.
+// shared offset, so the time is P times the latency of one row; the bytes
+// it moves (about 9 per cell) would take a few microseconds.  Measured on
+// the first design (one row ahead, a 64 MiB table gather, a global stream
+// read, a loop over the warp counts), the row took 1.1 us.  On this design
+// (tools/scan_split.py) it takes about 0.9 us on stages whose symbols are
+// uniform over each row's support, 0.75 us when they follow the rows'
+// distributions: the row is a chain of dependent shared-memory loads
+// (bucket, search steps for the worst of the K lanes, starts, counts, ring
+// word), and the K/32 warps share one SM's shared-memory pipe.
 //
-// What the design does about it: one CTA per stream with K threads
-// (K <= 1024, a multiple of 32) keeps every lane state in a register.  The
-// rank is a warp __ballot_sync + __popc, the warp totals go through shared
-// memory (double-buffered by row parity, so one __syncthreads per row), and
-// the next row's idx and keep are loaded before the current row's gather.
-// The JAX one-hot matmul distribution was a TPU device; it is not carried
-// over.  Reads past the end of the stream give 0, as the JAX version's K
-// zero words of padding do, so the caller need not pad.
+// What the design does about it: one CTA of K threads, one lane each, and
+// nothing but shared memory on the row's dependent chain.
+//   * The stage's CDF rows (starts as u16, the row's n+1 entries, the last
+//     one 65536 stored as 0) come into dynamic shared memory at launch, with
+//     a bucket table per row: bucket b holds the symbol at cum = b << shift,
+//     and a flag when the bucket holds only freq-1 symbols (the tails of a
+//     wide row), whose start is cum itself.  A lookup is one bucket load
+//     and, unless flagged, a 4-ary search between two buckets, which is
+//     empty for most cells; the search loop is warp-uniform.  The host
+//     picks the finest shift that fits the budget; DeviceTables holds the
+//     bucket tables of every shift.
+//   * A stage whose rows do not fit at any shift runs the same search over
+//     the compact table in global memory (table_in_smem = 0).
+//   * The stream ahead of offset lives in a ring in shared memory, refilled
+//     by cp.async 256 words per warp every kRefill rows, kRefill rows before
+//     it is read (one commit and one wait per refill); reads past the end
+//     of the stream give 0 (zero-filled copies).
+//   * idx and keep come kDepth rows ahead through a ring of the same kind;
+//     a lane reads its next row's inputs at the top of the current row, off
+//     the chain.
+//   * The renorm rank: __ballot_sync + __popc within the warp; each warp's
+//     count is one byte in shared memory, so after the one __syncthreads of
+//     the row lane l of every warp reads warp l's count and two
+//     __reduce_add_sync give the counts below the warp and the total.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,84 +60,389 @@
 namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
+constexpr int kRefill = 4;                // rows from a ring refill to the next
+constexpr int kDepth = kRefill + 2;       // rows of idx / keep loaded ahead
+constexpr int kSlots = kDepth + kRefill - 1;  // rows of idx / keep in the ring
+constexpr int kChunk = 256;               // stream words per warp copy: 32 threads x 16 B
+constexpr uint32_t kRunFlag = 0x8000u;    // bucket of freq-1 symbols only
 
-__global__ void __launch_bounds__(1024)
-rans_decode_scan_kernel(const uint32_t* __restrict__ states_in,
-                        const int32_t* __restrict__ offset_in,
-                        const uint16_t* __restrict__ stream, long long n_stream,
-                        const int32_t* __restrict__ idx, const uint8_t* __restrict__ kp,
-                        const uint32_t* __restrict__ dec_sf,
-                        uint32_t* __restrict__ states_out, int32_t* __restrict__ offset_out,
-                        int32_t* __restrict__ cums, int rows, int lanes) {
-  __shared__ int warp_counts[2][32];
-  const int lane = threadIdx.x;
-  const int warp = lane >> 5;
-  const int wl = lane & 31;
+struct DecodeArgs {
+  const uint32_t* states_in;
+  const int32_t* offset_in;
+  const uint16_t* stream;
+  long long n_stream;
+  const int32_t* idx;
+  const uint8_t* kp;
+  const uint16_t* starts;   // compact CDF table, all rows
+  const uint16_t* buckets;  // the stage's rows of the table at `shift`
+  const int2* meta;         // (R,) {base in starts, n symbols}
+  int row0, nrows;          // the stage's rows [row0, row0 + nrows)
+  int span_base, span_len;  // their entries in starts (multiples of 8)
+  int shift, bucket_stride; // buckets in shared memory
+  int ring_words;           // stream ring, a power of two
+  uint32_t* states_out;
+  int32_t* offset_out;
+  int32_t* cums;
+  int rows, lanes;
+};
+
+struct Layout {
+  int bases, starts, buckets, idx, kp, ring, total;
+};
+
+__host__ __device__ inline int round16(int b) { return (b + 15) & ~15; }
+
+__host__ __device__ inline Layout layout(const DecodeArgs& a, bool table_in_smem) {
+  Layout l;
+  int off = 64;  // warp counts, two rows of 32 bytes
+  l.bases = off;
+  l.starts = l.buckets = off;
+  if (table_in_smem) {
+    off += round16(a.nrows * 2);  // u16 row bases
+    l.starts = off;
+    off += round16(a.span_len * 2);
+    l.buckets = off;
+    off += round16(a.nrows * a.bucket_stride * 2);
+  }
+  l.idx = off;
+  off += kSlots * a.lanes * 4;
+  l.kp = off;
+  off += kSlots * a.lanes;
+  l.ring = off;
+  off += a.ring_words * 2;
+  l.total = off;
+  return l;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's share of a refill of kRefill rows of idx and keep: one
+// 16-byte copy of idx (row j_idx of the refill, column c_idx), and one of
+// keep for threads below lanes / 4.  Fixed per thread, worked out once.
+struct RowCopy {
+  int j_idx, c_idx, j_kp, c_kp;  // j_kp < 0: no keep copy
+};
+
+__device__ __forceinline__ RowCopy row_copy(int lanes) {
+  const int t = threadIdx.x;
+  const int q = lanes >> 2;   // idx copies per row
+  const int qk = lanes >> 4;  // keep copies per row
+  RowCopy c;
+  c.j_idx = t / q;
+  c.c_idx = 4 * (t % q);
+  c.j_kp = t < kRefill * qk ? t / qk : -1;
+  c.c_kp = 16 * (t % qk);
+  return c;
+}
+
+// Rows [r0, r0 + kRefill) of idx and keep (those below `rows`) into ring
+// slots row % kSlots.
+__device__ __forceinline__ void issue_rows(const DecodeArgs& a, const RowCopy& c, int32_t* idx_ring,
+                                           uint8_t* kp_ring, int r0) {
+  const int rr = r0 + c.j_idx;
+  if (rr < a.rows)
+    cp_async16(idx_ring + (rr % kSlots) * a.lanes + c.c_idx,
+               a.idx + static_cast<size_t>(rr) * a.lanes + c.c_idx, 16);
+  const int rk = r0 + c.j_kp;
+  if (c.j_kp >= 0 && rk < a.rows)
+    cp_async16(kp_ring + (rk % kSlots) * a.lanes + c.c_kp,
+               a.kp + static_cast<size_t>(rk) * a.lanes + c.c_kp, 16);
+}
+
+// Stream chunk c (words [c*kChunk, (c+1)*kChunk)) into the ring, by one warp.
+__device__ __forceinline__ void issue_chunk(const DecodeArgs& a, uint16_t* ring, long long c) {
+  const int wl = threadIdx.x & 31;
+  const long long p0 = c * kChunk + 8 * wl;
+  const long long avail = a.n_stream - p0;
+  const int bytes = avail >= 8 ? 16 : (avail > 0 ? static_cast<int>(avail) * 2 : 0);
+  cp_async16(ring + ((c * kChunk) & (a.ring_words - 1)) + 8 * wl, bytes ? a.stream + p0 : a.stream,
+             bytes);
+}
+
+// tools/scan_split.py builds variants that take one thing out each (they no
+// longer decode a real stream): 1 the cums store, 2 the ring refills after
+// the prologue, 3 the table lookup (start and freq computed from cum),
+// 4 the row-base load.  0 is the kernel.
+#ifndef RANS_DECODE_VARIANT
+#define RANS_DECODE_VARIANT 0
+#endif
+constexpr int kVariant = RANS_DECODE_VARIANT;
+
+// Built with -DRANS_DECODE_STAMPS (tools/scan_split.py does), thread 0
+// adds the clock64 cycles of each phase of every row to rans_decode_stamps.
+#ifdef RANS_DECODE_STAMPS
+__device__ unsigned long long rans_decode_stamps[16];
+__device__ __forceinline__ unsigned long long clock_now() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c)::"memory");
+  return c;
+}
+#define PHASE(k, v)                                    \
+  do {                                                 \
+    asm volatile("" ::"r"(static_cast<uint32_t>(v)) : "memory"); \
+    const unsigned long long now_ = clock_now();       \
+    acc[k] += now_ - prev;                             \
+    prev = now_;                                       \
+  } while (0)
+#else
+#define PHASE(k, v) \
+  do {              \
+  } while (0)
+#endif
+
+template <bool kSmemTable>
+__global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = layout(a, kSmemTable);
+  uint8_t* counts = smem;
+  uint16_t* base_s = reinterpret_cast<uint16_t*>(smem + l.bases);  // rows' first entries
+  uint16_t* starts_s = reinterpret_cast<uint16_t*>(smem + l.starts);
+  uint16_t* bucket_s = reinterpret_cast<uint16_t*>(smem + l.buckets);
+  int32_t* idx_ring = reinterpret_cast<int32_t*>(smem + l.idx);
+  uint8_t* kp_ring = smem + l.kp;
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem + l.ring);
+
+  const int t = threadIdx.x;
+  const int lanes = a.lanes;
+  const int warp = t >> 5;
+  const int wl = t & 31;
   const int nwarps = lanes >> 5;
   const unsigned below = (1u << wl) - 1u;
+  const int ring_mask = a.ring_words - 1;
+  const int ring_chunks = a.ring_words / kChunk;
 
-  uint32_t x = states_in[lane];
-  long long offset = offset_in[0];
-  size_t i = lane;
-  int32_t idx_cur = rows > 0 ? idx[i] : 0;
-  uint8_t kp_cur = rows > 0 ? kp[i] : 0;
-  for (int r = 0; r < rows; ++r, i += lanes) {
-    int32_t idx_next = 0;
-    uint8_t kp_next = 0;
-    if (r + 1 < rows) {
-      idx_next = idx[i + lanes];
-      kp_next = kp[i + lanes];
-    }
-    const bool keep = kp_cur != 0;
-    const uint32_t cum = x & 0xFFFFu;
-    cums[i] = static_cast<int32_t>(cum);
-    uint32_t adv = 0u;
-    bool flag = false;
-    if (keep) {
-      const uint32_t sf = dec_sf[(static_cast<size_t>(static_cast<uint32_t>(idx_cur)) << 16) + cum];
-      adv = (sf & 0xFFFFu) * (x >> 16) + cum - (sf >> 16);
-      flag = adv < kRansL;
-    }
-    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag);
-    const int buf = r & 1;
-    if (wl == 0) warp_counts[buf][warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, total = 0;
-    for (int w = 0; w < nwarps; ++w) {
-      const int c = warp_counts[buf][w];
-      before += w < warp ? c : 0;
-      total += c;
-    }
-    if (flag) {
-      const long long pos = offset + before + __popc(ballot & below);
-      const uint32_t word = pos < n_stream ? stream[pos] : 0u;
-      adv = (adv << 16) | word;
-    }
-    if (keep) x = adv;
-    offset += total;
-    idx_cur = idx_next;
-    kp_cur = kp_next;
+  uint32_t x = a.states_in[t];
+  int offset = a.offset_in[0];
+  if (a.rows == 0) {
+    a.states_out[t] = x;
+    if (t == 0) a.offset_out[0] = offset;
+    return;
   }
-  states_out[lane] = x;
-  if (lane == 0) offset_out[0] = static_cast<int32_t>(offset);
+
+  // ---- prologue: tables, the first kDepth rows, a full stream ring
+  for (int e = t; e < 64; e += lanes) counts[e] = 0;
+  if (kSmemTable) {
+    for (int e = t; e < a.nrows; e += lanes) {
+      const int2 m = a.meta[a.row0 + e];
+      base_s[e] = static_cast<uint16_t>(m.x - a.span_base);
+    }
+    for (int c = t; c < a.span_len / 8; c += lanes)
+      cp_async16(starts_s + 8 * c, a.starts + a.span_base + 8 * c, 16);
+    for (int c = t; c < a.nrows * a.bucket_stride / 8; c += lanes)
+      cp_async16(bucket_s + 8 * c, a.buckets + 8 * c, 16);
+  }
+  const RowCopy rcopy = row_copy(lanes);
+  for (int rr = 0; rr < kDepth; rr += kRefill) issue_rows(a, rcopy, idx_ring, kp_ring, rr);
+  long long filled = offset / kChunk;  // next chunk to copy
+  for (int c = warp; c < ring_chunks; c += nwarps) issue_chunk(a, ring, filled + c);
+  filled += ring_chunks;
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this lane's inputs of row rr: keep, its CDF row's entries and buckets
+  struct RowIn {
+    bool keep;
+    int rbase, rn, bbase;
+  };
+  auto load_row = [&](int rr) {
+    const int slot = (rr % kSlots) * lanes + t;
+    RowIn in;
+    in.keep = rr < a.rows && kp_ring[slot] != 0;
+    const int rel = min(max(idx_ring[slot] - a.row0, 0), a.nrows - 1);
+    in.bbase = rel * a.bucket_stride;
+    in.rbase = 0;
+    in.rn = 1;
+    if (kVariant != 4) {
+      if (kSmemTable) {
+        in.rbase = base_s[rel];
+      } else {
+        const int2 m = a.meta[a.row0 + rel];
+        in.rbase = m.x;
+        in.rn = m.y;
+      }
+    }
+    return in;
+  };
+  RowIn cur = load_row(0);
+  const uint16_t* starts = kSmemTable ? starts_s : a.starts;
+
+#ifdef RANS_DECODE_STAMPS
+  unsigned long long acc[11] = {};
+  unsigned long long prev = clock_now();
+#endif
+  size_t i = t;
+  for (int r = 0; r < a.rows; ++r, i += lanes) {
+    // the next row's inputs do not depend on the state: their loads go out
+    // first and land while this row's chain runs
+    const RowIn next_in = load_row(r + 1);
+    const bool keep = cur.keep;
+    const int rbase = cur.rbase, rn = cur.rn, bbase = cur.bbase;
+    const uint32_t cum = x & 0xFFFFu;
+    if (kVariant != 1) a.cums[i] = static_cast<int32_t>(cum);
+    PHASE(8, cum);
+    uint32_t adv;
+    if (kVariant == 3) {
+      adv = 256u * (x >> 16) + (cum & 0xFFu);
+    } else {
+      // every lane runs the lookup (a lane that keeps nothing searches an
+      // empty range), so a warp leaves the search loop together
+      uint32_t lo, hi, e = 0u;
+      if (kSmemTable) {
+        const uint16_t* bk = bucket_s + bbase + (cum >> a.shift);
+        e = bk[0];
+        lo = e & ~kRunFlag;
+        hi = bk[1] & ~kRunFlag;
+        PHASE(9, lo + hi);
+      } else {
+        lo = 0u;
+        hi = static_cast<uint32_t>(rn - 1);
+      }
+      const bool run = (e & kRunFlag) != 0u;  // start = cum, freq = 1
+      if (!keep || run) hi = lo;
+      const uint16_t* st = starts + rbase;
+      // 4-ary search for the last entry <= cum in [lo, hi] (st[lo] <= cum
+      // holds throughout): three probes per step, loaded together by the
+      // lanes still searching
+      while (__any_sync(0xFFFFFFFFu, lo < hi)) {
+        if (lo < hi) {
+          const uint32_t w = hi - lo;
+          const uint32_t m1 = lo + (w + 3u) / 4u, m2 = lo + (2u * w + 3u) / 4u;
+          const uint32_t m3 = lo + (3u * w + 3u) / 4u;
+          const bool b1 = st[m1] <= cum, b2 = st[m2] <= cum, b3 = st[m3] <= cum;
+          hi = b3 ? hi : b2 ? m3 - 1u : b1 ? m2 - 1u : m1 - 1u;
+          lo = b3 ? m3 : b2 ? m2 : b1 ? m1 : lo;
+        }
+      }
+      PHASE(10, lo);
+      const uint32_t start = run ? cum : st[lo];
+      const uint32_t next = run ? cum + 1u : ((static_cast<uint32_t>(st[lo + 1]) - 1u) & 0xFFFFu) + 1u;
+      adv = (next - start) * (x >> 16) + cum - start;
+    }
+    const bool flag = keep && adv < kRansL;
+    PHASE(0, adv);
+    const unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag);
+    uint8_t* cnt = counts + 32 * (r & 1);
+    if (wl == 0) cnt[warp] = static_cast<uint8_t>(__popc(ballot));
+    PHASE(1, ballot);
+    // the copies of the last refill, kRefill rows ago, have landed
+    if (r % kRefill == 0) cp_async_wait<0>();
+    PHASE(2, 0);
+    __syncthreads();
+    PHASE(3, 0);
+
+    // lane l holds warp l's count (0 past the last warp); two warp sums
+    const uint32_t c = cnt[wl];
+    const uint32_t before = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c : 0u);
+    const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, c);
+    PHASE(4, before + total);
+    // every lane reads (the ring index is masked), only flagged lanes use it
+    const uint32_t word = ring[(offset + static_cast<int>(before) + __popc(ballot & below)) & ring_mask];
+    if (flag) adv = (adv << 16) | word;
+    if (keep) x = adv;
+    PHASE(5, x);
+
+    // refill every kRefill rows: idx / keep kDepth rows ahead, the stream
+    // chunks wholly below offset
+    if (kVariant != 2 && r % kRefill == 0) {
+      issue_rows(a, rcopy, idx_ring, kp_ring, r + kDepth);
+      const long long free_chunks = offset / kChunk + ring_chunks - filled;
+      const int n_issue = static_cast<int>(min(free_chunks, static_cast<long long>(nwarps)));
+      if (warp < n_issue) issue_chunk(a, ring, filled + warp);
+      filled += max(n_issue, 0);
+      cp_async_commit();
+    }
+    PHASE(6, filled);
+
+    offset += static_cast<int>(total);
+    cur = next_in;
+    PHASE(7, cur.bbase + cur.rbase);
+  }
+#ifdef RANS_DECODE_STAMPS
+  if (t == 0) {
+    for (int k = 0; k < 11; ++k) atomicAdd(&rans_decode_stamps[k], acc[k]);
+    atomicAdd(&rans_decode_stamps[15], static_cast<unsigned long long>(a.rows));
+  }
+#endif
+  cp_async_wait<0>();
+  a.states_out[t] = x;
+  if (t == 0) a.offset_out[0] = offset;
+}
+
+template <bool kSmemTable>
+int launch(const DecodeArgs& a, int smem_cap, cudaStream_t stream) {
+  const int bytes = layout(a, kSmemTable).total;
+  if (bytes > smem_cap) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rans_decode_scan_kernel<kSmemTable>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<1, a.lanes, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C interface for ctypes.  Every pointer is a device pointer; `stream` is a
-// cudaStream_t.  Needs 32 <= lanes <= 1024 and lanes % 32 == 0.  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// cudaStream_t.  The wrapper's plan_decode picks shift, bucket_stride and
+// ring_words with the same layout; the launch refuses more than smem_cap
+// bytes.  Needs 32 <= lanes <= 1024, lanes % 32 == 0, stream, idx and
+// kp 16-byte aligned, and ring_words a power of two >=
+// 2 * kRefill * lanes + kChunk.  Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
                                 const void* stream_words, long long n_stream, const void* idx,
-                                const void* kp, const void* dec_sf, void* states_out,
-                                void* offset_out, void* cums, int rows, int lanes,
-                                void* stream) {
+                                const void* kp, const void* starts, const void* buckets,
+                                const void* meta, int row0, int nrows, int span_base, int span_len,
+                                int shift, int bucket_stride, int ring_words, int table_in_smem,
+                                int smem_cap, void* states_out, void* offset_out, void* cums,
+                                int rows, int lanes, void* stream) {
   if (lanes < 32 || lanes > 1024 || lanes % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  rans_decode_scan_kernel<<<1, lanes, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(states_in), static_cast<const int32_t*>(offset_in),
-      static_cast<const uint16_t*>(stream_words), n_stream, static_cast<const int32_t*>(idx),
-      static_cast<const uint8_t*>(kp), static_cast<const uint32_t*>(dec_sf),
-      static_cast<uint32_t*>(states_out), static_cast<int32_t*>(offset_out),
-      static_cast<int32_t*>(cums), rows, lanes);
-  return static_cast<int>(cudaGetLastError());
+  if (ring_words < 2 * kRefill * lanes + kChunk || (ring_words & (ring_words - 1)) != 0 || nrows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (table_in_smem && (shift < 1 || shift > 16 || bucket_stride % 8 || span_base % 8 ||
+                        span_len % 8 || span_len > 65536))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a;
+  a.states_in = static_cast<const uint32_t*>(states_in);
+  a.offset_in = static_cast<const int32_t*>(offset_in);
+  a.stream = static_cast<const uint16_t*>(stream_words);
+  a.n_stream = n_stream;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.starts = static_cast<const uint16_t*>(starts);
+  a.buckets = static_cast<const uint16_t*>(buckets);
+  a.meta = static_cast<const int2*>(meta);
+  a.row0 = row0;
+  a.nrows = nrows;
+  a.span_base = span_base;
+  a.span_len = span_len;
+  a.shift = shift;
+  a.bucket_stride = bucket_stride;
+  a.ring_words = ring_words;
+  a.states_out = static_cast<uint32_t*>(states_out);
+  a.offset_out = static_cast<int32_t*>(offset_out);
+  a.cums = static_cast<int32_t*>(cums);
+  a.rows = rows;
+  a.lanes = lanes;
+  auto s = static_cast<cudaStream_t>(stream);
+  return table_in_smem ? launch<true>(a, smem_cap, s) : launch<false>(a, smem_cap, s);
 }
+
+#ifdef RANS_DECODE_STAMPS
+// Copies the 16 stamp counters to `host` and zeroes them.
+extern "C" int rans_decode_read_stamps(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, rans_decode_stamps, sizeof(rans_decode_stamps));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const unsigned long long zeros[16] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(rans_decode_stamps, zeros, sizeof(zeros)));
+}
+#endif

@@ -15,18 +15,27 @@
 //   state = k ? (state/freq)<<16 + state%freq + start : state
 // Outputs: final states (K), words (P,K) u16, flags (P,K) u8.
 //
-// What bounds it: each lane is a chain of P dependent steps (one 32-bit
-// division each), so the time is P times the latency of one step, not the
-// 8 bytes per cell it moves (about 2.4 us at the flagship grid).
+// What bounds it: each lane is a chain of P dependent steps, so the time is
+// P times the latency of one step, not the 8 bytes per cell it moves (about
+// 2.4 us at the flagship grid).  Measured on the first design (one row
+// ahead, native u32 / and %), a row took 183 ns, 108 of them the division.
 //
-// What the design does about it: one thread per lane keeps the state in a
-// register across all P rows; neighbouring threads read neighbouring words
-// of the row-major (P,K) buffers, so every row is one coalesced load; the
-// next row's sf and keep are loaded before the current row's division so
-// the load latency hides behind it; division is native u32 / and %.  The
-// TPU kernel's two-limb float division and Mosaic-safe casts existed only
-// for TPU limits and are not carried over: native division gives the same
-// bits.  Lanes are independent, so the grid is ceil(K/128) blocks of 128.
+// What the design does about it:
+//   * The division leaves the chain's slow path.  After the renorm,
+//     y < freq<<16 <= 2^32, so q = y / freq < 2^16.  With r = an
+//     approximate float reciprocal of freq (rcp.approx, within 1 ulp,
+//     computed from the tile and not from the state), q' = trunc(float(y)
+//     * r) is within 2^16 * 2^-22 < 1 of y / freq, so q' is q - 1, q or
+//     q + 1; one test of y - q'*freq against 0 and freq corrects it.  The
+//     chain is then renorm test -> I2F -> FMUL -> F2I -> multiply-subtract
+//     -> two compares -> multiply-add, with no branch, so the unrolled rows
+//     of a tile interleave their off-chain work with it.
+//   * sf and keep arrive through a ring of kStages tiles of kTileRows rows
+//     in shared memory, loaded by cp.async two to three tiles (32-48 rows)
+//     ahead of the chain.
+//   * One warp per CTA, one lane per thread, so the K/32 CTAs spread over as
+//     many SMs; each row's word and flag stores are coalesced (64 and 32
+//     bytes per warp).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,48 +43,130 @@
 namespace {
 
 constexpr uint32_t kRansL = 1u << 16;
-constexpr int kThreads = 128;
+constexpr int kTileRows = 16;
+constexpr int kStages = 4;
 
-__global__ void __launch_bounds__(kThreads)
+// tools/scan_split.py builds variants that time one change each: 1 the
+// first design's native division, 2 no word / flag stores.  0 is the kernel.
+#ifndef RANS_ENCODE_VARIANT
+#define RANS_ENCODE_VARIANT 0
+#endif
+constexpr int kVariant = RANS_ENCODE_VARIANT;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 1/f within 1 ulp, without the slow path of the IEEE reciprocal.
+__device__ __forceinline__ float approx_rcp(uint32_t f) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(static_cast<float>(f)));
+  return r;
+}
+
+// One cell: word and flag out, the state after it returned.
+__device__ __forceinline__ uint32_t encode_cell(uint32_t x, uint32_t sf, bool keep, uint16_t* word,
+                                                uint8_t* flag_out) {
+  const uint32_t start = sf >> 16;
+  const uint32_t freq = keep ? (sf & 0xFFFFu) : 1u;
+  const float rcp = approx_rcp(freq);
+  const bool flag = keep && x >= (freq << 16);
+  if (kVariant != 2) {
+    *word = static_cast<uint16_t>(x & 0xFFFFu);
+    *flag_out = flag ? 1 : 0;
+  }
+  const uint32_t y = flag ? x >> 16 : x;
+  if (kVariant == 1) return keep ? ((y / freq) << 16) + y % freq + start : x;
+  const uint32_t q0 = __float2uint_rz(__uint2float_rn(y) * rcp);
+  const int r0 = static_cast<int>(y - q0 * freq);
+  const uint32_t q = q0 - (r0 < 0 ? 1u : 0u) + (r0 >= static_cast<int>(freq) ? 1u : 0u);
+  // (q << 16) + y % freq == y + q * (65536 - freq)
+  return keep ? y + start + q * (65536u - freq) : x;
+}
+
+__global__ void __launch_bounds__(32)
 rans_encode_scan_kernel(const uint32_t* __restrict__ sf, const uint8_t* __restrict__ kp,
                         uint32_t* __restrict__ states, uint16_t* __restrict__ words,
                         uint8_t* __restrict__ flags, int rows, int lanes) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  uint32_t x = kRansL;
-  size_t i = lane;
-  uint32_t sf_cur = rows > 0 ? sf[i] : 0u;
-  uint8_t kp_cur = rows > 0 ? kp[i] : 0;
-  for (int r = 0; r < rows; ++r, i += lanes) {
-    uint32_t sf_next = 0u;
-    uint8_t kp_next = 0;
-    if (r + 1 < rows) {
-      sf_next = sf[i + lanes];
-      kp_next = kp[i + lanes];
+  __shared__ __align__(16) uint32_t sf_s[kStages][kTileRows][32];
+  __shared__ __align__(16) uint8_t kp_s[kStages][kTileRows][32];
+  const int t = threadIdx.x;
+  const int col0 = blockIdx.x * 32;
+  const int lane = col0 + t;
+  const int tiles = (rows + kTileRows - 1) / kTileRows;
+
+  // tile `tile` into slot tile % kStages: sf 16 rows x 128 B (4 copies per
+  // thread), keep 16 rows x 32 B (1 copy per thread); rows past P zero-fill
+  auto issue = [&](int tile) {
+    const int slot = tile % kStages;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = t + 32 * j;
+      const int row = c >> 3;
+      const int part = 4 * (c & 7);
+      const int grow = tile * kTileRows + row;
+      const bool in = grow < rows;
+      cp_async16(&sf_s[slot][row][part], in ? sf + static_cast<size_t>(grow) * lanes + col0 + part : sf,
+                 in ? 16 : 0);
     }
-    const bool keep = kp_cur != 0;
-    const uint32_t start = sf_cur >> 16;
-    const uint32_t freq = keep ? (sf_cur & 0xFFFFu) : 1u;
-    const bool flag = keep && x >= (freq << 16);
-    words[i] = static_cast<uint16_t>(x & 0xFFFFu);
-    flags[i] = flag ? 1 : 0;
-    if (flag) x >>= 16;
-    if (keep) x = ((x / freq) << 16) + (x % freq) + start;
-    sf_cur = sf_next;
-    kp_cur = kp_next;
+    const int row = t >> 1;
+    const int part = 16 * (t & 1);
+    const int grow = tile * kTileRows + row;
+    const bool in = grow < rows;
+    cp_async16(&kp_s[slot][row][part], in ? kp + static_cast<size_t>(grow) * lanes + col0 + part : kp,
+               in ? 16 : 0);
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < tiles) issue(s);
+    cp_async_commit();
   }
+
+  uint32_t x = kRansL;
+  for (int tile = 0; tile < tiles; ++tile) {
+    cp_async_wait<kStages - 2>();
+    __syncwarp();
+    if (tile + kStages - 1 < tiles) issue(tile + kStages - 1);
+    cp_async_commit();
+    const int slot = tile % kStages;
+    const int r0 = tile * kTileRows;
+    const size_t i0 = static_cast<size_t>(r0) * lanes + lane;
+    if (r0 + kTileRows <= rows) {
+      // a whole tile, unrolled: the reciprocals and loads of later rows are
+      // scheduled among the chain's steps
+#pragma unroll
+      for (int j = 0; j < kTileRows; ++j) {
+        const size_t i = i0 + static_cast<size_t>(j) * lanes;
+        x = encode_cell(x, sf_s[slot][j][t], kp_s[slot][j][t] != 0, words + i, flags + i);
+      }
+    } else {  // the last, partial tile
+      for (int j = 0; j < rows - r0; ++j) {
+        const size_t i = i0 + static_cast<size_t>(j) * lanes;
+        x = encode_cell(x, sf_s[slot][j][t], kp_s[slot][j][t] != 0, words + i, flags + i);
+      }
+    }
+  }
+  cp_async_wait<0>();
   states[lane] = x;
 }
 
 }  // namespace
 
 // C interface for ctypes.  Every pointer is a device pointer; `stream` is a
-// cudaStream_t.  Returns cudaGetLastError() after the launch (0 = launched).
+// cudaStream_t.  Needs lanes % 32 == 0 and sf, kp 16-byte aligned.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 extern "C" int rans_encode_scan(const void* sf, const void* kp, void* states, void* words,
                                 void* flags, int rows, int lanes, void* stream) {
-  if (lanes <= 0) return 0;
-  const int blocks = (lanes + kThreads - 1) / kThreads;
-  rans_encode_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (lanes <= 0 || lanes % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  rans_encode_scan_kernel<<<lanes / 32, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(sf), static_cast<const uint8_t*>(kp),
       static_cast<uint32_t*>(states), static_cast<uint16_t*>(words),
       static_cast<uint8_t*>(flags), rows, lanes);

@@ -258,12 +258,16 @@ class GranularCodec(Codec):
                          torch.zeros(2, dtype=torch.int16, device=self.device)])
         dec = [rans_device.decoder_init(stream, lanes)]
 
+        n_rows = t.offset.shape[0]
+
         def dec_stage(indexes, keep, row_off):
+            # z codes on the bottleneck rows [0, row0), y on the Gaussian rows
+            rows = (0, row0) if row_off == 0 else (row0, n_rows)
             idx_flat = (indexes + row_off).reshape(-1).to(I32)
             kp_flat = keep.reshape(-1)
             states, offset, cums = rans_device.decode_stage_scan(
                 dec[0], stream, _pad_to_grid(idx_flat, lanes),
-                _pad_to_grid(kp_flat.to(torch.uint8), lanes), t, lanes,
+                _pad_to_grid(kp_flat.to(torch.uint8), lanes), t, lanes, rows,
             )
             esc_offset, vals = rans_device.decode_stage_values(
                 dec[0].esc_offset, cums, esc, idx_flat, kp_flat, t, lanes

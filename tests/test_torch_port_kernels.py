@@ -130,13 +130,111 @@ def test_int_bit_pattern_helpers_round_trip():
 
 
 # ---------------------------------------------------------------------------
+# the kernels' arithmetic, emulated in numpy
+# ---------------------------------------------------------------------------
+
+
+def _emulated_lookup(compact, row, shift):
+    """The decode kernel's symbol search for every cum of one CDF row: a
+    bucket pair then a 4-ary search (shift None: the global-table path,
+    the same search over the whole row).  Returns (start, freq)."""
+    base, n = (int(v) for v in compact.meta[row])
+    st = compact.starts.numpy().view(np.uint16).astype(np.int64)[base : base + n + 1]
+    cum = np.arange(1 << 16, dtype=np.int64)
+    if shift is None:
+        lo, hi = np.zeros_like(cum), np.full_like(cum, n - 1)
+    else:
+        stride = rans_cuda.bucket_stride(shift)
+        first = compact.bucket_base[shift] + row * stride
+        entry = compact.buckets.numpy().view(np.uint16).astype(np.int64)[first : first + stride]
+        bucket, flag = entry & (rans_cuda.RUN_FLAG - 1), entry & rans_cuda.RUN_FLAG
+        lo, hi = bucket[cum >> shift], bucket[(cum >> shift) + 1]
+        run = flag[cum >> shift] != 0
+        hi = np.where(run, lo, hi)
+    while (lo < hi).any():  # the kernel's 4-ary search
+        act, w = lo < hi, hi - lo
+        m1, m2, m3 = lo + (w + 3) // 4, lo + (2 * w + 3) // 4, lo + (3 * w + 3) // 4
+        b1, b2, b3 = (st[np.where(act, m, 0)] <= cum for m in (m1, m2, m3))
+        new_hi = np.where(b3, hi, np.where(b2, m3 - 1, np.where(b1, m2 - 1, m1 - 1)))
+        new_lo = np.where(b3, m3, np.where(b2, m2, np.where(b1, m1, lo)))
+        lo, hi = np.where(act, new_lo, lo), np.where(act, new_hi, hi)
+    nxt = ((st[lo + 1] - 1) & 0xFFFF) + 1
+    if shift is None:
+        return st[lo], nxt - st[lo]
+    return np.where(run, cum, st[lo]), np.where(run, 1, nxt - st[lo])
+
+
+def _gaussian_device_tables(levels):
+    merged, _ = merge_tables(build_gaussian_tables(ScaleTableConfig(levels=levels).values()))
+    return rans_device.DeviceTables.from_tables(merged, "cpu")
+
+
+@pytest.mark.parametrize("which,shifts", [("tiny", (6, 7, 8, 12, 16, None)),
+                                          ("flagship_gaussian", (6, None))])
+def test_compact_table_lookup_equals_dec_sf(tables, which, shifts):
+    """For every (row, cum): the kernel's lookup in the compact table gives
+    the (start, freq) of dec_sf, the twin's table.  The flagship's 64
+    Gaussian rows at the shift and the path the codec uses, the TINY tables
+    at every shift."""
+    t = tables[1] if which == "tiny" else _gaussian_device_tables(ModelConfig().scale_table.levels)
+    dec_sf = t.dec_sf.numpy().view(np.uint32).reshape(-1, 1 << 16).astype(np.int64)
+    for row in range(dec_sf.shape[0]):
+        for shift in shifts:
+            start, freq = _emulated_lookup(t.compact, row, shift)
+            np.testing.assert_array_equal(start, dec_sf[row] >> 16, err_msg=f"row {row} shift {shift}")
+            np.testing.assert_array_equal(freq, dec_sf[row] & 0xFFFF, err_msg=f"row {row} shift {shift}")
+
+
+def test_encode_reciprocal_division_is_exact_for_every_freq():
+    """The encode kernel's division: q' = trunc(float32(y) * r) with r any
+    float32 within 1 ulp of 1/freq (rcp.approx: the correctly rounded value
+    or either neighbour), corrected by one test of y - q'*freq, equals
+    y // freq, and its state update equals the twin's, for every freq in
+    [1, 65535] at boundary and random y < freq << 16."""
+    freq = np.arange(1, 1 << 16, dtype=np.uint64)[:, None]
+    top = freq << np.uint64(16)
+    rng = np.random.default_rng(0)
+    y = np.concatenate([
+        np.zeros_like(freq), np.ones_like(freq), freq - 1, freq, freq + 1, 2 * freq - 1,
+        top // 2, top - freq - 1, top - freq, top - 1,
+        (rng.random((freq.shape[0], 16)) * top.astype(np.float64)).astype(np.uint64),
+    ], axis=1)
+    y = np.minimum(y, top - 1)
+    start = rng.integers(0, 1 << 16, y.shape).astype(np.uint64) % (np.uint64(65537) - freq)
+    rcp_rn = np.float32(1.0) / freq.astype(np.float32)
+    for rcp in (rcp_rn, np.nextafter(rcp_rn, np.float32(0)), np.nextafter(rcp_rn, np.float32(2))):
+        q0 = (y.astype(np.float64).astype(np.float32) * rcp).astype(np.uint64)
+        r0 = y.astype(np.int64) - (q0 * freq).astype(np.int64)
+        q = q0 - (r0 < 0) + (r0 >= freq.astype(np.int64))
+        np.testing.assert_array_equal(q, y // freq)
+        np.testing.assert_array_equal(y + start + q * (np.uint64(65536) - freq),
+                                      ((y // freq) << np.uint64(16)) + y % freq + start)
+
+
+def test_plan_decode_keeps_the_flagship_stages_on_chip():
+    """At K=512 on an H100's 232,448-byte budget the Gaussian rows take the
+    finest buckets and the bottleneck rows fit; K=1024 still fits."""
+    cfg = ModelConfig()
+    eb = EntropyBottleneck(cfg.N, device="cpu")
+    eb.reset_parameters(torch.Generator().manual_seed(0))
+    merged, starts = merge_tables(build_bottleneck_tables(eb.host_params()),
+                                  build_gaussian_tables(cfg.scale_table.values()))
+    compact = rans_cuda.compact_cdf(merged.cdf, merged.cdf_length, "cpu")
+    r, row0 = merged.cdf.shape[0], starts[1]
+    for lanes, rows, shift in [(512, (row0, r), 6), (512, (0, row0), 8), (1024, (row0, r), 7)]:
+        plan = rans_cuda.plan_decode(compact, rows, lanes, 232_448)
+        assert plan.table_in_smem and plan.shift == shift and plan.smem_bytes <= 232_448
+
+
+# ---------------------------------------------------------------------------
 # card-only: kernels against their plain twins, and the codec on the card
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,k,extreme", [(1, 32, False), (37, 64, False), (300, 512, False),
-                                         (16, 64, True), (1956, 512, False), (100, 200, False)])
+                                         (16, 64, True), (1956, 512, False), (100, 224, False),
+                                         (0, 64, False), (33, 1024, True)])
 def test_encode_kernel_matches_twin(cuda_device, p, k, extreme):
     sf, kp = _as_tensors(*_random_sf(p, k, p + k, extreme), cuda_device)
     n0 = rans_cuda.rans_encode_scan.launches
@@ -149,25 +247,84 @@ def test_encode_kernel_matches_twin(cuda_device, p, k, extreme):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes,n", [(32, 100), (64, 900), (512, 20000), (1024, 5000)])
-def test_decode_kernel_matches_twin(cuda_device, tables, lanes, n):
-    tables_np, t = tables
-    st = [tuple(torch.from_numpy(a) for a in _stage(tables_np, n, n + lanes))]
+def test_encode_kernel_rejects_lanes_it_cannot_run(cuda_device):
+    sf, kp = _as_tensors(*_random_sf(4, 200, 0), cuda_device)
+    with pytest.raises(ValueError, match="lanes"):
+        rans_cuda.rans_encode_scan(sf, kp)
+
+
+def _decode_on_card(tables_np, device, lanes, n, seed, rows=None, smem_cap=None, stage=None):
+    """Code one stage on the CPU, decode it with the kernel and the twin."""
+    t = rans_device.DeviceTables.from_tables(tables_np, "cpu")
+    st = [stage or tuple(torch.from_numpy(a) for a in _stage(tables_np, n, seed))]
     stream, n_words, _, _ = rans_device.encode_stages(st, t, lanes)
-    stream = stream[: int(n_words)].to(cuda_device)
+    stream = stream[: int(n_words)].to(device)
     dec = rans_device.decoder_init(stream, lanes)
-    ig = rans_device._pad_to_grid(st[0][1], lanes).to(cuda_device)
-    kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes).to(cuda_device)
-    dec_sf = t.dec_sf.to(cuda_device)
+    ig = rans_device._pad_to_grid(st[0][1], lanes).to(device)
+    kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes).to(device)
+    td = rans_device.DeviceTables.from_tables(tables_np, device)
     n0 = rans_cuda.rans_decode_scan.launches
-    got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, dec_sf)
+    got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, td.dec_sf, td.compact,
+                                     rows, smem_cap=smem_cap)
     torch.cuda.synchronize()
     assert rans_cuda.rans_decode_scan.launches == n0 + 1
-    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, dec_sf)
+    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, td.dec_sf)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert bool(rans_device.stream_ok(rans_device.DecoderState(got[0], got[1], dec.esc_offset)))
-    assert int(got[1]) == int(n_words)
+    if n:
+        assert bool(rans_device.stream_ok(rans_device.DecoderState(got[0], got[1], dec.esc_offset)))
+        assert int(got[1]) == int(n_words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n", [(32, 100), (64, 900), (512, 20000), (1024, 5000),
+                                     (64, 0), (64, 64)])
+def test_decode_kernel_matches_twin(cuda_device, tables, lanes, n):
+    _decode_on_card(tables[0], cuda_device, lanes, n, n + lanes)
+
+
+def _smem_cap(tables_np, lanes, path):
+    """A shared-memory cap that selects `path`: the finest buckets that fit
+    the card ("default"), 64-cum buckets' worth less ("coarse"), or only the
+    rings ("global")."""
+    compact = rans_cuda.compact_cdf(tables_np.cdf, tables_np.cdf_length, "cpu")
+    full = rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), lanes, 1 << 30)
+    if path == "default":
+        return None
+    if path == "coarse":
+        return rans_cuda.decode_smem_bytes(lanes, full.nrows, full.span_len, 24, full.ring_words, True)
+    return rans_cuda.decode_smem_bytes(lanes, full.nrows, full.span_len, 0, full.ring_words, False)
+
+
+@pytest.mark.parametrize("path,shift", [("coarse", 12), ("global", 16)])
+def test_plan_decode_picks_the_path_the_cap_allows(tables, path, shift):
+    tables_np = tables[0]
+    compact = rans_cuda.compact_cdf(tables_np.cdf, tables_np.cdf_length, "cpu")
+    cap = _smem_cap(tables_np, 512, path)
+    plan = rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), 512, cap)
+    assert (plan.shift, plan.table_in_smem, plan.smem_bytes <= cap) == (shift, path != "global", True)
+    with pytest.raises(ValueError):
+        rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), 512, cap - 16 if path == "global" else 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "coarse", "global"])
+def test_decode_kernel_shift_and_global_table_paths(cuda_device, tables, path):
+    tables_np = tables[0]
+    _decode_on_card(tables_np, cuda_device, 512, 30000, 5, smem_cap=_smem_cap(tables_np, 512, path))
+
+
+@pytest.mark.cuda
+def test_decode_kernel_every_lane_renormalises_every_row(cuda_device, tables):
+    """Escapes on the narrowest row code its tail symbol (freq 1): 16 bits per
+    cell, so all lanes take a word in the same rows and the ring wraps."""
+    tables_np = tables[0]
+    row = int(np.argmin(tables_np.cdf_length))
+    n = 200 * 256
+    idx = np.full(n, row, np.int32)
+    sym = np.full(n, tables_np.offset[row] + tables_np.max_symbol[row] + 1000, np.int32)
+    stage = tuple(torch.from_numpy(a) for a in (sym, idx, np.ones(n, bool)))
+    _decode_on_card(tables_np, cuda_device, 256, n, 0, rows=(row, row + 1), stage=stage)
 
 
 @pytest.mark.cuda
