@@ -13,13 +13,14 @@ printing a result:
   3. kernels vs their plain PyTorch twins on the card, bit for bit, at the
      flagship grid (P=1956 rows, K=512 lanes) on random and on
      real-table inputs, plus a small stream coded on the CPU as reference;
-     CUDA-event timings of kernel and twin, and ns per row; then the decode
-     edge cases (the widest Gaussian row alone, every lane renormalising
-     in every row so the stream ring wraps, K in {32, 64, 1024}, stages of
-     P=0 and P=1 rows, the flagship stages with symbols drawn from each
-     row's distribution, the batch-8 grid of 15,648 rows, and the
-     global-table path), each coded on the card and decoded by kernel and
-     twin;
+     CUDA-event timings of kernel and twin, ns per row, and the decode
+     wrapper's host floor (12 launches of 0 rows, 9 passes); then the
+     decode edge cases (the widest Gaussian row alone, every lane
+     renormalising in every row so the stream ring wraps, K in
+     {32, 64, 1024}, stages of P=0 and P=1 rows, the flagship stages with
+     symbols drawn from each row's distribution, the batch-8 grid of
+     15,648 rows, and the global-table path), each coded on the card and
+     decoded by kernel and twin;
   4. the main path at full width: ModelConfig() with seeded random
      weights, a seeded 768x512 image, compress -> serialize -> deserialize
      -> decompress at q in {0, 5, 10} (batch 1) and q=10 (batch 8), and an
@@ -136,6 +137,37 @@ def stage_rows(codec, n_stages):
     return [(0, codec.gauss_row0)] + [(codec.gauss_row0, r)] * (n_stages - 1)
 
 
+def decode_wrapper_floor(dev, passes=9, lanes=LANES):
+    """The decode wrapper's host floor: the 12 decode launches of a round
+    trip with no rows, so the kernel returns at once and the CUDA-event time
+    is the host's.  Returns the ms for all 12 in each of `passes` passes.
+    It builds the flagship's coder tables without a model (a seeded
+    EntropyBottleneck(N) and the Gaussian rows), so it runs against any
+    checkout's package, to compare two of them."""
+    from progressivecodec_tpu_torch.coder import rans_device
+    from progressivecodec_tpu_torch.coder.tables import merge_tables
+    from progressivecodec_tpu_torch.config import ModelConfig
+    from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck, build_bottleneck_tables
+    from progressivecodec_tpu_torch.entropy.gaussian import build_gaussian_tables
+
+    cfg = ModelConfig()
+    eb = EntropyBottleneck(cfg.N, device="cpu")
+    eb.reset_parameters(torch.Generator().manual_seed(SEED))
+    merged, _ = merge_tables(build_bottleneck_tables(eb.host_params()),
+                             build_gaussian_tables(cfg.scale_table.values()))
+    t = rans_device.DeviceTables.from_tables(merged, dev)
+    stream = torch.zeros(2 * lanes, dtype=torch.int16, device=dev)
+    dec0 = rans_device.decoder_init(stream, lanes)
+    ig = torch.zeros((0, lanes), dtype=torch.int32, device=dev)
+    kg = torch.zeros((0, lanes), dtype=torch.uint8, device=dev)
+
+    def run():
+        for _ in range(12):
+            rans_device.decode_stage_scan(dec0, stream, ig, kg, t, lanes)
+
+    return [cuda_time_ms(run, reps=20) for _ in range(passes)]
+
+
 def check_kernels(codec, dev):
     """Phase 3: each kernel against its plain twin, bit for bit; timings."""
     from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
@@ -226,6 +258,10 @@ def check_kernels(codec, dev):
 
     dec_ms = cuda_time_ms(lambda: dec_all(False), reps=10)
     dec_plain_ms = cuda_time_ms(lambda: dec_all(True), reps=1, warmup=1)
+    floor = sorted(decode_wrapper_floor(dev))
+    log(f"  decode wrapper floor, 12 launches of 0 rows: median {floor[len(floor) // 2]:.4f} ms, "
+        f"min {floor[0]:.4f}, max {floor[-1]:.4f} over {len(floor)} passes "
+        f"({100 * floor[len(floor) // 2] / dec_ms:.1f}% of the 12 scans' {dec_ms:.4f} ms)")
     for rows in sorted(set(rows_of)):
         plan = rans_cuda.plan_decode(t.compact, rows, LANES, rans_cuda._smem_optin(0))
         log(f"  decode plan, CDF rows {rows}: {plan.smem_bytes} bytes of dynamic shared memory "

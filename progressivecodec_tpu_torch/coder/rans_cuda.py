@@ -63,9 +63,10 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name}: on {t.device}, want {device}")
 
 
-def _fn(lib: str, name: str, argtypes):
+@functools.lru_cache(maxsize=None)
+def _fn(lib: str, name: str, *argtypes):
     f = getattr(build.library(lib), name)
-    f.argtypes = argtypes
+    f.argtypes = list(argtypes)
     f.restype = ctypes.c_int
     return f
 
@@ -132,8 +133,7 @@ def rans_encode_scan(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
     states = torch.empty((k,), dtype=torch.int32, device=dev)
     words = torch.empty((p, k), dtype=torch.int16, device=dev)
     flags = torch.empty((p, k), dtype=torch.uint8, device=dev)
-    fn = _fn("rans_encode", "rans_encode_scan",
-             [_VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP])
+    fn = _fn("rans_encode", "rans_encode_scan", _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int, _VP)
     rc = fn(sf_rev.data_ptr(), kp_rev.data_ptr(), states.data_ptr(), words.data_ptr(),
             flags.data_ptr(), p, k, _stream(dev))
     if rc != 0:
@@ -197,67 +197,70 @@ def bucket_stride(shift: int) -> int:
     return ((1 << (16 - shift)) + 1 + 7) // 8 * 8
 
 
-class CompactCdf(NamedTuple):
-    """The decode kernel's symbol lookup tables.
+class CompactCdf:
+    """The decode kernel's symbol lookup tables, on one device.
 
     starts: (E,) int16 bits.  Row r holds its n_r + 1 CDF entries (symbol
         starts, then 65536 stored as 0) from starts[base_r], rows padded to
         multiples of 8 entries.
-    buckets: flat int16 bits, one (R, bucket_stride(s)) table per shift s in
-        SHIFTS, from bucket_base[s].  Entry [r, b] is the symbol whose range
-        holds cum = b << s for b < 2^(16-s), then n_r - 1; bit 15
-        (RUN_FLAG) marks a bucket whose cums all fall in symbols of freq 1,
-        where the symbol's start is cum itself.
     meta: (R, 2) int32 {base_r, n_r}.
     row_base: (R + 1,) host int64 copy of the bases, so that the entries of a
         row range are known without a device-to-host copy.
-    bucket_base: {shift: first entry of its table in buckets}.
+
+    A launch reads the bucket table of its stage's rows at one shift
+    (`bucket_rows`); `buckets` builds it on first use and keeps it, and
+    `plan_decode` keeps each launch plan, so a codec holds one table per
+    row range it decodes.
     """
 
-    starts: torch.Tensor
-    buckets: torch.Tensor
-    meta: torch.Tensor
-    row_base: np.ndarray
-    bucket_base: dict
+    def __init__(self, cdf: np.ndarray, cdf_length: np.ndarray, device):
+        """From a padded CDF matrix (R, Lmax) whose row r holds
+        n_r = cdf_length[r] - 1 symbols, cdf[r, n_r] = 65536."""
+        cdf = np.asarray(cdf, dtype=np.int64)
+        n = np.asarray(cdf_length, dtype=np.int64) - 1
+        if n.max() >= RUN_FLAG:
+            raise ValueError(f"a CDF row has {n.max()} symbols; the bucket table holds < {RUN_FLAG}")
+        base = np.zeros(cdf.shape[0] + 1, dtype=np.int64)
+        base[1:] = np.cumsum((n + 1 + 7) // 8 * 8)
+        starts = np.zeros(int(base[-1]), dtype=np.uint16)
+        for i in range(cdf.shape[0]):
+            starts[base[i] : base[i] + n[i] + 1] = cdf[i, : n[i] + 1] & 0xFFFF
+        self.starts = torch.from_numpy(starts.view(np.int16)).to(device)
+        self.meta = torch.from_numpy(np.stack([base[:-1], n], axis=1).astype(np.int32)).to(device)
+        self.device = self.starts.device
+        self.row_base = base
+        self._cdf, self._n = cdf, n
+        self._buckets: dict = {}
+        self.plans: dict = {}
 
-
-def compact_cdf(cdf: np.ndarray, cdf_length: np.ndarray, device) -> CompactCdf:
-    """Build `CompactCdf` from a padded CDF matrix (R, Lmax) whose row r holds
-    n_r = cdf_length[r] - 1 symbols, cdf[r, n_r] = 65536."""
-    cdf = np.asarray(cdf, dtype=np.int64)
-    n = np.asarray(cdf_length, dtype=np.int64) - 1
-    r = cdf.shape[0]
-    base = np.zeros(r + 1, dtype=np.int64)
-    base[1:] = np.cumsum((n + 1 + 7) // 8 * 8)
-    starts = np.zeros(int(base[-1]), dtype=np.uint16)
-    if n.max() >= RUN_FLAG:
-        raise ValueError(f"a CDF row has {n.max()} symbols; the bucket table holds < {RUN_FLAG}")
-    tables, bucket_base, acc = [], {}, 0
-    for shift in SHIFTS:
+    def bucket_rows(self, rows, shift: int) -> np.ndarray:
+        """The bucket table of CDF rows [row0, row1) at `shift`: uint16
+        (row1 - row0, bucket_stride(shift)).  Entry [r, b] is the symbol
+        whose range holds cum = b << shift for b < 2^(16-shift), then
+        n_r - 1; bit 15 (RUN_FLAG) marks a bucket whose cums all fall in
+        symbols of freq 1, where the symbol's start is cum itself."""
         nb = 1 << (16 - shift)
-        tab = np.empty((r, bucket_stride(shift)), dtype=np.uint16)
         probe = np.arange(nb, dtype=np.int64) << shift
-        for i in range(r):
-            row = cdf[i, : n[i] + 1]
-            lo = np.searchsorted(row[: n[i]], probe, side="right") - 1
-            hi = np.searchsorted(row[: n[i]], probe + (1 << shift) - 1, side="right") - 1
+        tab = np.empty((rows[1] - rows[0], bucket_stride(shift)), dtype=np.uint16)
+        for j, i in enumerate(range(*rows)):
+            n = self._n[i]
+            row = self._cdf[i, : n + 1]
+            lo = np.searchsorted(row[:n], probe, side="right") - 1
+            hi = np.searchsorted(row[:n], probe + (1 << shift) - 1, side="right") - 1
             ones = np.concatenate([[0], np.cumsum(np.diff(row) == 1)])
             run = ones[hi + 1] - ones[lo] == hi - lo + 1
-            tab[i, :nb] = lo | np.where(run, RUN_FLAG, 0)
-            tab[i, nb:] = n[i] - 1
-        tables.append(tab.reshape(-1))
-        bucket_base[shift] = acc
-        acc += tab.size
-    for i in range(r):
-        starts[base[i] : base[i] + n[i] + 1] = cdf[i, : n[i] + 1] & 0xFFFF
-    meta = np.stack([base[:-1], n], axis=1).astype(np.int32)
-    return CompactCdf(
-        starts=torch.from_numpy(starts.view(np.int16)).to(device),
-        buckets=torch.from_numpy(np.concatenate(tables).view(np.int16)).to(device),
-        meta=torch.from_numpy(meta).to(device),
-        row_base=base,
-        bucket_base=bucket_base,
-    )
+            tab[j, :nb] = lo | np.where(run, RUN_FLAG, 0)
+            tab[j, nb:] = n - 1
+        return tab
+
+    def buckets(self, rows, shift: int) -> torch.Tensor:
+        """`bucket_rows(rows, shift)` on the device as flat int16 bits, built
+        on first use."""
+        key = (tuple(rows), shift)
+        if key not in self._buckets:
+            tab = self.bucket_rows(rows, shift).reshape(-1).view(np.int16)
+            self._buckets[key] = torch.from_numpy(tab).to(self.device)
+        return self._buckets[key]
 
 
 class DecodePlan(NamedTuple):
@@ -287,7 +290,15 @@ def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_i
 def plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> DecodePlan:
     """The finest bucket shift at which the stage's rows, the idx / keep
     ring and the stream ring fit `smem_cap` bytes; else the global-table
-    path.  Raises ValueError if not even the rings fit."""
+    path.  Kept in `compact.plans`.  Raises ValueError if not even the
+    rings fit."""
+    key = (tuple(rows), lanes, smem_cap)
+    if key not in compact.plans:
+        compact.plans[key] = _plan_decode(compact, rows, lanes, smem_cap)
+    return compact.plans[key]
+
+
+def _plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> DecodePlan:
     row0, row1 = rows
     if not 0 <= row0 < row1 <= compact.meta.shape[0]:
         raise ValueError(f"rows {rows} outside the table's {compact.meta.shape[0]} rows")
@@ -333,24 +344,20 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
         raise ValueError(f"rans_decode_scan: unsupported device {dev}")
     if k % 32 or not 32 <= k <= 1024:
         raise ValueError(f"rans_decode_scan kernel needs 32 <= lanes <= 1024, lanes % 32 == 0; got {k}")
-    if compact is None:
-        raise ValueError("rans_decode_scan kernel needs the CompactCdf tables")
-    _check("compact.starts", compact.starts, torch.int16, 1, dev)
-    _check("compact.buckets", compact.buckets, torch.int16, 1, dev)
-    _check("compact.meta", compact.meta, torch.int32, 2, dev)
+    if compact is None or compact.device != dev:
+        raise ValueError(f"rans_decode_scan kernel needs the CompactCdf tables on {dev}")
     cap = smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
-    plan = plan_decode(compact, rows or (0, compact.meta.shape[0]), k, cap)
+    rows = rows or (0, compact.meta.shape[0])
+    plan = plan_decode(compact, rows, k, cap)
     stream, idx, kp = _aligned(stream), _aligned(idx), _aligned(kp)
-    buckets = compact.buckets.data_ptr()  # the stage's rows of the table at plan.shift
-    if plan.table_in_smem:
-        buckets += 2 * (compact.bucket_base[plan.shift] + plan.row0 * plan.bucket_stride)
+    # the stage's rows of the bucket table at plan.shift
+    buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
     states_out = torch.empty((k,), dtype=torch.int32, device=dev)
     offset_out = torch.empty((1,), dtype=torch.int32, device=dev)
     cums = torch.empty((p, k), dtype=torch.int32, device=dev)
     ci = ctypes.c_int
-    fn = _fn("rans_decode", "rans_decode_scan",
-             [_VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, ci, ci, ci, ci, ci, ci,
-              ci, ci, ci, _VP, _VP, _VP, ci, ci, _VP])
+    fn = _fn("rans_decode", "rans_decode_scan", _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP,
+             _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, _VP)
     rc = fn(states.data_ptr(), offset.data_ptr(), stream.data_ptr(), stream.numel(),
             idx.data_ptr(), kp.data_ptr(), compact.starts.data_ptr(), buckets,
             compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,

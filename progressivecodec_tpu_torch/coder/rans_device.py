@@ -37,8 +37,8 @@ class DeviceTables:
     dec_val: (R*2^16,) int32 symbol value, indexed row<<16 | cum.
     offset, max_symbol: (R,) int32 per-row escape metadata.
     compact: the decode kernel's lookup (`rans_cuda.CompactCdf`): each row's
-        CDF entries as u16 and bucket tables at 11 widths, 1.1 MiB for the
-        flagship.
+        CDF entries as u16, and a bucket table per row range decoded; built
+        for CUDA tables only (None elsewhere: the twin reads dec_sf).
     Freq is packed into 16 bits.  For the flagship R = 256, so dec_sf and
     dec_val are 64 MiB each: build them once per codec.
     """
@@ -49,7 +49,7 @@ class DeviceTables:
     lmax: int
     offset: torch.Tensor
     max_symbol: torch.Tensor
-    compact: rans_cuda.CompactCdf
+    compact: rans_cuda.CompactCdf | None
 
     @staticmethod
     def from_tables(t: CoderTables, device) -> "DeviceTables":
@@ -75,7 +75,8 @@ class DeviceTables:
             lmax=lmax,
             offset=dev(t.offset.astype(np.int32)),
             max_symbol=dev(t.max_symbol.astype(np.int32)),
-            compact=rans_cuda.compact_cdf(t.cdf, t.cdf_length, device),
+            compact=(rans_cuda.CompactCdf(t.cdf, t.cdf_length, device)
+                     if torch.device(device).type == "cuda" else None),
         )
 
 

@@ -20,14 +20,11 @@
 //
 // What bounds it: the lanes are coupled through that prefix count and the
 // shared offset, so the time is P times the latency of one row; the bytes
-// it moves (about 9 per cell) would take a few microseconds.  Measured on
-// the first design (one row ahead, a 64 MiB table gather, a global stream
-// read, a loop over the warp counts), the row took 1.1 us.  On this design
-// (tools/scan_split.py) it takes about 0.9 us on stages whose symbols are
-// uniform over each row's support, 0.75 us when they follow the rows'
-// distributions: the row is a chain of dependent shared-memory loads
-// (bucket, search steps for the worst of the K lanes, starts, counts, ring
-// word), and the K/32 warps share one SM's shared-memory pipe.
+// it moves (about 9 per cell) would take a few microseconds.  On this
+// design the row is a chain of dependent shared-memory loads (bucket,
+// search steps for the worst of the K lanes, starts, counts, ring word),
+// and the K/32 warps share one SM's shared-memory pipe; PERF.md (PR 2)
+// gives the measured time per row and its split.
 //
 // What the design does about it: one CTA of K threads, one lane each, and
 // nothing but shared memory on the row's dependent chain.
@@ -38,8 +35,8 @@
 //     wide row), whose start is cum itself.  A lookup is one bucket load
 //     and, unless flagged, a 4-ary search between two buckets, which is
 //     empty for most cells; the search loop is warp-uniform.  The host
-//     picks the finest shift that fits the budget; DeviceTables holds the
-//     bucket tables of every shift.
+//     picks the finest shift that fits the budget and builds the stage's
+//     bucket table at that shift on first use (rans_cuda.CompactCdf).
 //   * A stage whose rows do not fit at any shift runs the same search over
 //     the compact table in global memory (table_in_smem = 0).
 //   * The stream ahead of offset lives in a ring in shared memory, refilled
@@ -56,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -168,37 +167,6 @@ __device__ __forceinline__ void issue_chunk(const DecodeArgs& a, uint16_t* ring,
              bytes);
 }
 
-// tools/scan_split.py builds variants that take one thing out each (they no
-// longer decode a real stream): 1 the cums store, 2 the ring refills after
-// the prologue, 3 the table lookup (start and freq computed from cum),
-// 4 the row-base load.  0 is the kernel.
-#ifndef RANS_DECODE_VARIANT
-#define RANS_DECODE_VARIANT 0
-#endif
-constexpr int kVariant = RANS_DECODE_VARIANT;
-
-// Built with -DRANS_DECODE_STAMPS (tools/scan_split.py does), thread 0
-// adds the clock64 cycles of each phase of every row to rans_decode_stamps.
-#ifdef RANS_DECODE_STAMPS
-__device__ unsigned long long rans_decode_stamps[16];
-__device__ __forceinline__ unsigned long long clock_now() {
-  unsigned long long c;
-  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c)::"memory");
-  return c;
-}
-#define PHASE(k, v)                                    \
-  do {                                                 \
-    asm volatile("" ::"r"(static_cast<uint32_t>(v)) : "memory"); \
-    const unsigned long long now_ = clock_now();       \
-    acc[k] += now_ - prev;                             \
-    prev = now_;                                       \
-  } while (0)
-#else
-#define PHASE(k, v) \
-  do {              \
-  } while (0)
-#endif
-
 template <bool kSmemTable>
 __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -260,26 +228,19 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     in.keep = rr < a.rows && kp_ring[slot] != 0;
     const int rel = min(max(idx_ring[slot] - a.row0, 0), a.nrows - 1);
     in.bbase = rel * a.bucket_stride;
-    in.rbase = 0;
     in.rn = 1;
-    if (kVariant != 4) {
-      if (kSmemTable) {
-        in.rbase = base_s[rel];
-      } else {
-        const int2 m = a.meta[a.row0 + rel];
-        in.rbase = m.x;
-        in.rn = m.y;
-      }
+    if (kSmemTable) {
+      in.rbase = base_s[rel];
+    } else {
+      const int2 m = a.meta[a.row0 + rel];
+      in.rbase = m.x;
+      in.rn = m.y;
     }
     return in;
   };
   RowIn cur = load_row(0);
   const uint16_t* starts = kSmemTable ? starts_s : a.starts;
 
-#ifdef RANS_DECODE_STAMPS
-  unsigned long long acc[11] = {};
-  unsigned long long prev = clock_now();
-#endif
   size_t i = t;
   for (int r = 0; r < a.rows; ++r, i += lanes) {
     // the next row's inputs do not depend on the state: their loads go out
@@ -288,72 +249,58 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     const bool keep = cur.keep;
     const int rbase = cur.rbase, rn = cur.rn, bbase = cur.bbase;
     const uint32_t cum = x & 0xFFFFu;
-    if (kVariant != 1) a.cums[i] = static_cast<int32_t>(cum);
-    PHASE(8, cum);
-    uint32_t adv;
-    if (kVariant == 3) {
-      adv = 256u * (x >> 16) + (cum & 0xFFu);
+    a.cums[i] = static_cast<int32_t>(cum);
+    // every lane runs the lookup (a lane that keeps nothing searches an
+    // empty range), so a warp leaves the search loop together
+    uint32_t lo, hi, e = 0u;
+    if (kSmemTable) {
+      const uint16_t* bk = bucket_s + bbase + (cum >> a.shift);
+      e = bk[0];
+      lo = e & ~kRunFlag;
+      hi = bk[1] & ~kRunFlag;
     } else {
-      // every lane runs the lookup (a lane that keeps nothing searches an
-      // empty range), so a warp leaves the search loop together
-      uint32_t lo, hi, e = 0u;
-      if (kSmemTable) {
-        const uint16_t* bk = bucket_s + bbase + (cum >> a.shift);
-        e = bk[0];
-        lo = e & ~kRunFlag;
-        hi = bk[1] & ~kRunFlag;
-        PHASE(9, lo + hi);
-      } else {
-        lo = 0u;
-        hi = static_cast<uint32_t>(rn - 1);
-      }
-      const bool run = (e & kRunFlag) != 0u;  // start = cum, freq = 1
-      if (!keep || run) hi = lo;
-      const uint16_t* st = starts + rbase;
-      // 4-ary search for the last entry <= cum in [lo, hi] (st[lo] <= cum
-      // holds throughout): three probes per step, loaded together by the
-      // lanes still searching
-      while (__any_sync(0xFFFFFFFFu, lo < hi)) {
-        if (lo < hi) {
-          const uint32_t w = hi - lo;
-          const uint32_t m1 = lo + (w + 3u) / 4u, m2 = lo + (2u * w + 3u) / 4u;
-          const uint32_t m3 = lo + (3u * w + 3u) / 4u;
-          const bool b1 = st[m1] <= cum, b2 = st[m2] <= cum, b3 = st[m3] <= cum;
-          hi = b3 ? hi : b2 ? m3 - 1u : b1 ? m2 - 1u : m1 - 1u;
-          lo = b3 ? m3 : b2 ? m2 : b1 ? m1 : lo;
-        }
-      }
-      PHASE(10, lo);
-      const uint32_t start = run ? cum : st[lo];
-      const uint32_t next = run ? cum + 1u : ((static_cast<uint32_t>(st[lo + 1]) - 1u) & 0xFFFFu) + 1u;
-      adv = (next - start) * (x >> 16) + cum - start;
+      lo = 0u;
+      hi = static_cast<uint32_t>(rn - 1);
     }
+    const bool run = (e & kRunFlag) != 0u;  // start = cum, freq = 1
+    if (!keep || run) hi = lo;
+    const uint16_t* st = starts + rbase;
+    // 4-ary search for the last entry <= cum in [lo, hi] (st[lo] <= cum
+    // holds throughout): three probes per step, loaded together by the
+    // lanes still searching
+    while (__any_sync(0xFFFFFFFFu, lo < hi)) {
+      if (lo < hi) {
+        const uint32_t w = hi - lo;
+        const uint32_t m1 = lo + (w + 3u) / 4u, m2 = lo + (2u * w + 3u) / 4u;
+        const uint32_t m3 = lo + (3u * w + 3u) / 4u;
+        const bool b1 = st[m1] <= cum, b2 = st[m2] <= cum, b3 = st[m3] <= cum;
+        hi = b3 ? hi : b2 ? m3 - 1u : b1 ? m2 - 1u : m1 - 1u;
+        lo = b3 ? m3 : b2 ? m2 : b1 ? m1 : lo;
+      }
+    }
+    const uint32_t start = run ? cum : st[lo];
+    const uint32_t next = run ? cum + 1u : ((static_cast<uint32_t>(st[lo + 1]) - 1u) & 0xFFFFu) + 1u;
+    uint32_t adv = (next - start) * (x >> 16) + cum - start;
     const bool flag = keep && adv < kRansL;
-    PHASE(0, adv);
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag);
     uint8_t* cnt = counts + 32 * (r & 1);
     if (wl == 0) cnt[warp] = static_cast<uint8_t>(__popc(ballot));
-    PHASE(1, ballot);
     // the copies of the last refill, kRefill rows ago, have landed
     if (r % kRefill == 0) cp_async_wait<0>();
-    PHASE(2, 0);
     __syncthreads();
-    PHASE(3, 0);
 
     // lane l holds warp l's count (0 past the last warp); two warp sums
     const uint32_t c = cnt[wl];
     const uint32_t before = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c : 0u);
     const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, c);
-    PHASE(4, before + total);
     // every lane reads (the ring index is masked), only flagged lanes use it
     const uint32_t word = ring[(offset + static_cast<int>(before) + __popc(ballot & below)) & ring_mask];
     if (flag) adv = (adv << 16) | word;
     if (keep) x = adv;
-    PHASE(5, x);
 
     // refill every kRefill rows: idx / keep kDepth rows ahead, the stream
     // chunks wholly below offset
-    if (kVariant != 2 && r % kRefill == 0) {
+    if (r % kRefill == 0) {
       issue_rows(a, rcopy, idx_ring, kp_ring, r + kDepth);
       const long long free_chunks = offset / kChunk + ring_chunks - filled;
       const int n_issue = static_cast<int>(min(free_chunks, static_cast<long long>(nwarps)));
@@ -361,30 +308,37 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
       filled += max(n_issue, 0);
       cp_async_commit();
     }
-    PHASE(6, filled);
 
     offset += static_cast<int>(total);
     cur = next_in;
-    PHASE(7, cur.bbase + cur.rbase);
   }
-#ifdef RANS_DECODE_STAMPS
-  if (t == 0) {
-    for (int k = 0; k < 11; ++k) atomicAdd(&rans_decode_stamps[k], acc[k]);
-    atomicAdd(&rans_decode_stamps[15], static_cast<unsigned long long>(a.rows));
-  }
-#endif
   cp_async_wait<0>();
   a.states_out[t] = x;
   if (t == 0) a.offset_out[0] = offset;
 }
+
+constexpr int kMaxDevices = 64;
 
 template <bool kSmemTable>
 int launch(const DecodeArgs& a, int smem_cap, cudaStream_t stream) {
   const int bytes = layout(a, kSmemTable).total;
   if (bytes > smem_cap) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = rans_decode_scan_kernel<kSmemTable>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  // lift the kernel's dynamic shared-memory limit to the device's opt-in
+  // maximum, once per device (setting it twice from racing threads is
+  // harmless)
+  static std::atomic<bool> lifted[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices || !lifted[device].load(std::memory_order_relaxed)) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < kMaxDevices) lifted[device].store(true, std::memory_order_relaxed);
+  }
   kernel<<<1, a.lanes, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -436,13 +390,3 @@ extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
   auto s = static_cast<cudaStream_t>(stream);
   return table_in_smem ? launch<true>(a, smem_cap, s) : launch<false>(a, smem_cap, s);
 }
-
-#ifdef RANS_DECODE_STAMPS
-// Copies the 16 stamp counters to `host` and zeroes them.
-extern "C" int rans_decode_read_stamps(unsigned long long* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, rans_decode_stamps, sizeof(rans_decode_stamps));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  static const unsigned long long zeros[16] = {};
-  return static_cast<int>(cudaMemcpyToSymbol(rans_decode_stamps, zeros, sizeof(zeros)));
-}
-#endif

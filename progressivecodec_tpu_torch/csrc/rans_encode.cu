@@ -46,13 +46,6 @@ constexpr uint32_t kRansL = 1u << 16;
 constexpr int kTileRows = 16;
 constexpr int kStages = 4;
 
-// tools/scan_split.py builds variants that time one change each: 1 the
-// first design's native division, 2 no word / flag stores.  0 is the kernel.
-#ifndef RANS_ENCODE_VARIANT
-#define RANS_ENCODE_VARIANT 0
-#endif
-constexpr int kVariant = RANS_ENCODE_VARIANT;
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(src_bytes)
@@ -78,12 +71,9 @@ __device__ __forceinline__ uint32_t encode_cell(uint32_t x, uint32_t sf, bool ke
   const uint32_t freq = keep ? (sf & 0xFFFFu) : 1u;
   const float rcp = approx_rcp(freq);
   const bool flag = keep && x >= (freq << 16);
-  if (kVariant != 2) {
-    *word = static_cast<uint16_t>(x & 0xFFFFu);
-    *flag_out = flag ? 1 : 0;
-  }
+  *word = static_cast<uint16_t>(x & 0xFFFFu);
+  *flag_out = flag ? 1 : 0;
   const uint32_t y = flag ? x >> 16 : x;
-  if (kVariant == 1) return keep ? ((y / freq) << 16) + y % freq + start : x;
   const uint32_t q0 = __float2uint_rz(__uint2float_rn(y) * rcp);
   const int r0 = static_cast<int>(y - q0 * freq);
   const uint32_t q = q0 - (r0 < 0 ? 1u : 0u) + (r0 >= static_cast<int>(freq) ? 1u : 0u);

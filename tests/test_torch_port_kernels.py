@@ -144,9 +144,7 @@ def _emulated_lookup(compact, row, shift):
     if shift is None:
         lo, hi = np.zeros_like(cum), np.full_like(cum, n - 1)
     else:
-        stride = rans_cuda.bucket_stride(shift)
-        first = compact.bucket_base[shift] + row * stride
-        entry = compact.buckets.numpy().view(np.uint16).astype(np.int64)[first : first + stride]
+        entry = compact.bucket_rows((row, row + 1), shift)[0].astype(np.int64)
         bucket, flag = entry & (rans_cuda.RUN_FLAG - 1), entry & rans_cuda.RUN_FLAG
         lo, hi = bucket[cum >> shift], bucket[(cum >> shift) + 1]
         run = flag[cum >> shift] != 0
@@ -164,11 +162,6 @@ def _emulated_lookup(compact, row, shift):
     return np.where(run, cum, st[lo]), np.where(run, 1, nxt - st[lo])
 
 
-def _gaussian_device_tables(levels):
-    merged, _ = merge_tables(build_gaussian_tables(ScaleTableConfig(levels=levels).values()))
-    return rans_device.DeviceTables.from_tables(merged, "cpu")
-
-
 @pytest.mark.parametrize("which,shifts", [("tiny", (6, 7, 8, 12, 16, None)),
                                           ("flagship_gaussian", (6, None))])
 def test_compact_table_lookup_equals_dec_sf(tables, which, shifts):
@@ -176,11 +169,16 @@ def test_compact_table_lookup_equals_dec_sf(tables, which, shifts):
     the (start, freq) of dec_sf, the twin's table.  The flagship's 64
     Gaussian rows at the shift and the path the codec uses, the TINY tables
     at every shift."""
-    t = tables[1] if which == "tiny" else _gaussian_device_tables(ModelConfig().scale_table.levels)
+    if which == "tiny":
+        merged, t = tables
+    else:
+        merged, _ = merge_tables(build_gaussian_tables(ModelConfig().scale_table.values()))
+        t = rans_device.DeviceTables.from_tables(merged, "cpu")
+    compact = rans_cuda.CompactCdf(merged.cdf, merged.cdf_length, "cpu")
     dec_sf = t.dec_sf.numpy().view(np.uint32).reshape(-1, 1 << 16).astype(np.int64)
     for row in range(dec_sf.shape[0]):
         for shift in shifts:
-            start, freq = _emulated_lookup(t.compact, row, shift)
+            start, freq = _emulated_lookup(compact, row, shift)
             np.testing.assert_array_equal(start, dec_sf[row] >> 16, err_msg=f"row {row} shift {shift}")
             np.testing.assert_array_equal(freq, dec_sf[row] & 0xFFFF, err_msg=f"row {row} shift {shift}")
 
@@ -219,11 +217,39 @@ def test_plan_decode_keeps_the_flagship_stages_on_chip():
     eb.reset_parameters(torch.Generator().manual_seed(0))
     merged, starts = merge_tables(build_bottleneck_tables(eb.host_params()),
                                   build_gaussian_tables(cfg.scale_table.values()))
-    compact = rans_cuda.compact_cdf(merged.cdf, merged.cdf_length, "cpu")
+    compact = rans_cuda.CompactCdf(merged.cdf, merged.cdf_length, "cpu")
     r, row0 = merged.cdf.shape[0], starts[1]
     for lanes, rows, shift in [(512, (row0, r), 6), (512, (0, row0), 8), (1024, (row0, r), 7)]:
         plan = rans_cuda.plan_decode(compact, rows, lanes, 232_448)
         assert plan.table_in_smem and plan.shift == shift and plan.smem_bytes <= 232_448
+
+
+def test_compact_cdf_keeps_one_bucket_table_per_row_range(tables):
+    """CPU tables carry no CompactCdf (the twin reads dec_sf).  A CompactCdf
+    builds the bucket table of a (row range, shift) once, on first use, and
+    keeps each launch plan."""
+    merged, t = tables
+    assert t.compact is None
+    compact = rans_cuda.CompactCdf(merged.cdf, merged.cdf_length, "cpu")
+    r = merged.cdf.shape[0]
+    plan = rans_cuda.plan_decode(compact, (1, r), 64, 232_448)
+    assert rans_cuda.plan_decode(compact, [1, r], 64, 232_448) is plan
+    table = compact.buckets((1, r), plan.shift)
+    assert compact.buckets([1, r], plan.shift) is table
+    assert table.dtype == torch.int16 and table.numel() == (r - 1) * plan.bucket_stride
+    np.testing.assert_array_equal(table.numpy().view(np.uint16).reshape(r - 1, -1)[2],
+                                  compact.bucket_rows((3, 4), plan.shift)[0])
+
+
+@pytest.mark.parametrize("which", ["empty", "reversed", "past_the_end"])
+def test_plan_decode_refuses_row_ranges_outside_the_table(tables, which):
+    merged, _ = tables
+    compact = rans_cuda.CompactCdf(merged.cdf, merged.cdf_length, "cpu")
+    r = merged.cdf.shape[0]
+    rows = {"empty": (2, 2), "reversed": (3, 2), "past_the_end": (0, r + 1)}[which]
+    with pytest.raises(ValueError, match="outside"):
+        rans_cuda.plan_decode(compact, rows, 64, 232_448)
+    assert not compact.plans
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +313,7 @@ def _smem_cap(tables_np, lanes, path):
     """A shared-memory cap that selects `path`: the finest buckets that fit
     the card ("default"), 64-cum buckets' worth less ("coarse"), or only the
     rings ("global")."""
-    compact = rans_cuda.compact_cdf(tables_np.cdf, tables_np.cdf_length, "cpu")
+    compact = rans_cuda.CompactCdf(tables_np.cdf, tables_np.cdf_length, "cpu")
     full = rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), lanes, 1 << 30)
     if path == "default":
         return None
@@ -299,7 +325,7 @@ def _smem_cap(tables_np, lanes, path):
 @pytest.mark.parametrize("path,shift", [("coarse", 12), ("global", 16)])
 def test_plan_decode_picks_the_path_the_cap_allows(tables, path, shift):
     tables_np = tables[0]
-    compact = rans_cuda.compact_cdf(tables_np.cdf, tables_np.cdf_length, "cpu")
+    compact = rans_cuda.CompactCdf(tables_np.cdf, tables_np.cdf_length, "cpu")
     cap = _smem_cap(tables_np, 512, path)
     plan = rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), 512, cap)
     assert (plan.shift, plan.table_in_smem, plan.smem_bytes <= cap) == (shift, path != "global", True)
