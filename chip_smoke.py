@@ -8,25 +8,32 @@ Phases, in order; any failure raises and the script exits nonzero without
 printing a result:
   1. device: the card's name, the device count, nvidia-smi's name and
      power limit;
-  2. build: nvcc builds both kernels for sm_90a from csrc/ (registers and
-     spills from -Xptxas -v);
-  3. kernels vs their plain PyTorch twins on the card, bit for bit, at the
-     flagship grid (P=1956 rows, K=512 lanes) on random and on
-     real-table inputs, plus a small stream coded on the CPU as reference;
-     CUDA-event timings of kernel and twin, ns per row, and the decode
-     wrapper's host floor (12 launches of 0 rows, 9 passes); then the
-     decode edge cases (the widest Gaussian row alone, every lane
-     renormalising in every row so the stream ring wraps, K in
-     {32, 64, 1024}, stages of P=0 and P=1 rows, the flagship stages with
-     symbols drawn from each row's distribution, the batch-8 grid of
-     15,648 rows, and the global-table path), each coded on the card and
-     decoded by kernel and twin;
-  4. the main path at full width: ModelConfig() with seeded random
-     weights, a seeded 768x512 image, compress -> serialize -> deserialize
-     -> decompress at q in {0, 5, 10} (batch 1) and q=10 (batch 8), and an
-     80x-normal latent that must take escapes; each decoded y_hat must equal
-     the encoder's simulated y_hat bit for bit, with stream_ok, and the
-     launch counters must show the scans ran as kernels.
+  2. build: nvcc builds the kernels for sm_90a from csrc/, one nvcc per
+     source, all at once (registers and spills from -Xptxas -v);
+  3. kernels vs their plain PyTorch twins on the card, bit for bit: the
+     encode and decode scans at the flagship grid (P=1956 rows, K=512
+     lanes) on random and on real-table inputs, plus a small stream coded
+     on the CPU as reference; CUDA-event timings of kernel and twin, ns per
+     row, and the decode wrapper's host floor (12 launches of 0 rows, 9
+     passes); the decode edge cases (the widest Gaussian row alone, every
+     lane renormalising in every row so the stream ring wraps, K in
+     {32, 64, 1024}, stages of P=0 and P=1 rows, symbols drawn from each
+     row's distribution, the batch-8 grid of 15,648 rows, the global-table
+     path); then the PCT1-G grouped decode kernel on the flagship-table
+     stages at (K, G) = (512, 4) and (512, 16) and on smaller stages at
+     (32, 4), (1024, 2), (64, 64) and (96, 3), escapes included;
+  4. the main paths at full width, 768x512 seeded images, seeded random
+     weights, compress -> serialize -> deserialize -> decompress: the
+     flagship ModelConfig() at q in {0, 5, 10} (batch 1) and q=10 (batch 8)
+     and an 80x-normal latent that must take escapes; the same model in
+     PCT1-G with groups=4 at q in {0, 10}, whose y_hat must equal the
+     one-stream codec's; the reference CLI default ModelConfig(
+     multiple_decoder=False, stack_prog=False) through the unrolled
+     enhancement at q in {0, 5, 10}; WACNN (name="cnn", N=192, M=320) at
+     q=0.  Each decoded y_hat must equal the encoder's simulated y_hat bit
+     for bit, with stream_ok, and the launch counters, zeroed before each
+     round trip, must show one encode launch and one decode launch per
+     stage, on the grouped kernel when groups > 1.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object.
 """
@@ -400,6 +407,92 @@ def check_decode_cases(codec, dev):
                 flag3, stage_rows(codec, 3), LANES, dev, smem_cap=cap)
 
 
+def grouped_case(label, codec, stages, rows_of, lanes, groups, dev, timed=True):
+    """Code `stages` as PCT1-G on the card (the encode kernel over all lanes,
+    per-group compaction), then decode every stage with the grouped kernel
+    and its twin, bit for bit, and check the values and stream_ok.  Returns
+    (rows, payload words consumed, kernel ms for all stages, twin ms for all
+    stages)."""
+    from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
+
+    t = codec.device_tables
+    dstages = [tuple(a.to(dev) for a in s) for s in stages]
+    streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(dstages, t, lanes, groups)
+    escs = torch.nn.functional.pad(escs, (0, 2))
+    grids = [(rans_device._pad_to_grid(s_idx, lanes),
+              rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes)) for _, s_idx, s_keep in dstages]
+    dec0 = rans_device.grouped_decoder_init(streams, lanes, groups)
+    dec = dec0
+    for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dstages, grids, rows_of):
+        got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf,
+                                                 t.compact, rows)
+        torch.cuda.synchronize()
+        want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+        err = max_abs_err(got, want)
+        require(err == 0, f"{label}: grouped decode kernel != plain twin: max|d| {err}")
+        esc_off, vals = rans_device.decode_stage_grouped_values(
+            dec.esc_offsets, got[2], escs, s_idx, s_keep, t, lanes, groups)
+        require(torch.equal(vals, torch.where(s_keep, s_sym, 0)), f"{label}: decoded values != symbols")
+        dec = rans_device.GroupedDecoderState(got[0], got[1], esc_off)
+    require(bool(rans_device.grouped_stream_ok(dec)) and torch.equal(dec.offsets, n_words.to(torch.int32)),
+            f"{label}: stream_ok is False")
+
+    def run(plain):
+        d = dec0
+        for (ig, kg), rows in zip(grids, rows_of):
+            if plain:
+                s, o, _ = rans_cuda.rans_decode_scan_grouped_plain(d.states, d.offsets, streams, ig, kg,
+                                                                   t.dec_sf)
+            else:
+                s, o, _ = rans_cuda.rans_decode_scan_grouped(d.states, d.offsets, streams, ig, kg,
+                                                             t.dec_sf, t.compact, rows)
+            d = rans_device.GroupedDecoderState(s, o, d.esc_offsets)
+
+    n_rows = sum(ig.shape[0] for ig, _ in grids)
+    ms = cuda_time_ms(lambda: run(False), reps=10 if timed else 3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: run(True), reps=1, warmup=0) if timed else None
+    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], rans_cuda.warp_lanes(lanes // groups),
+                                 rans_cuda._smem_optin(0))
+    log(f"  decode case grouped {label}: P={n_rows} K={lanes} G={groups} (kt={lanes // groups}), "
+        f"{int(n_words.sum())} words, {int(n_escs.sum())} escapes: grouped kernel == plain twin, values "
+        f"exact, stream_ok; decode {ms:.4f} ms ({1e6 * ms / n_rows:.1f} ns per row), "
+        f"{plan.smem_bytes} B shared memory per CTA")
+    return n_rows, int(n_words.sum()) - 2 * lanes, ms, plain_ms
+
+
+def check_grouped_cases(codec, dev):
+    """Phase 3, third part: the PCT1-G decode kernel against its twin.
+    Returns the kernel-table entry, measured on the flagship-table stages at
+    K=512, G=4 (kt=128), the grouped flagship round trip's shape."""
+    from progressivecodec_tpu_torch.coder import rans_cuda
+
+    tables = codec._tables
+    row0 = codec.gauss_row0
+    flag = flagship_stages(tables, row0, np.random.default_rng(SEED + 7))
+    rows_of = stage_rows(codec, len(flag))
+    n_rows, consumed, ms, plain_ms = grouped_case("flagship-table stages", codec, flag, rows_of,
+                                                  LANES, 4, dev)
+    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 16, dev, timed=False)
+    small = flagship_stages(tables, row0, np.random.default_rng(SEED + 8))
+    small = [small[0], small[1], tuple(a[:50_000] for a in small[-1])]
+    for lanes, groups in ((32, 4), (1024, 2), (64, 64), (96, 3)):
+        grouped_case("z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3),
+                     lanes, groups, dev, timed=False)
+    # the bytes, as for the single stream: idx, keep and cums per cell, each
+    # stage's compact table once, the payload words consumed, the states
+    # and the four offsets in and out of each stage
+    cells = n_rows * LANES
+    table_bytes = 0
+    for rows in rows_of:
+        plan = rans_cuda.plan_decode(codec.device_tables.compact, rows, 128, rans_cuda._smem_optin(0))
+        table_bytes += 2 * plan.span_len + 2 * plan.nrows * plan.bucket_stride + 8 * plan.nrows
+    dec_bytes = cells * (4 + 1 + 4) + table_bytes + consumed * 2 + 12 * (8 * LANES + 8 * 4)
+    dec_ops = cells * 12
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                bound_ms=1e3 * max(dec_bytes / MEM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S),
+                bound_by="bytes" if dec_bytes / MEM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S else "operations")
+
+
 # ---------------------------------------------------------------------------
 # phase 4
 # ---------------------------------------------------------------------------
@@ -420,13 +513,14 @@ def synthetic_image(batch: int, seed: int):
     return np.stack(out).astype(np.float32)
 
 
-def roundtrip(codec, x, q, label, *, latent=None):
+def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
     """One checked round trip; the launch counts are zeroed just before it
-    and read just after it."""
+    and read just after it.  Returns the counts, the escape words and y_hat."""
     from progressivecodec_tpu_torch.coder import rans_cuda
 
-    rans_cuda.rans_encode_scan.launches = 0
-    rans_cuda.rans_decode_scan.launches = 0
+    scans = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, rans_cuda.rans_decode_scan_grouped)
+    for scan in scans:
+        scan.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if latent is None:
@@ -442,22 +536,42 @@ def roundtrip(codec, x, q, label, *, latent=None):
     out = codec.decompress(back)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    enc_n = rans_cuda.rans_encode_scan.launches
-    dec_n = rans_cuda.rans_decode_scan.launches
+    enc_n, dec_n, grp_n = (scan.launches for scan in scans)
 
     b = x.shape[0]
+    cfg = codec.cfg
     require(out["stream_ok"], f"{label}: stream_ok is False")
     require(torch.equal(out["y_hat"], data["y_hat"]), f"{label}: decoded y_hat != encoder y_hat")
+    if want_y_hat is not None:
+        require(torch.equal(out["y_hat"], want_y_hat), f"{label}: y_hat != the one-stream codec's")
     require(tuple(out["x_hat"].shape) == (b, H, W, 3), f"{label}: x_hat shape {tuple(out['x_hat'].shape)}")
     require(bool(torch.isfinite(out["x_hat"]).all()), f"{label}: x_hat not finite")
-    require(enc_n >= 1, f"{label}: the encode scan kernel never launched")
-    want_dec = 1 + codec.cfg.ns0 + (q > 0)  # z, base slices, enhancement: 12 / 11 here
-    require(dec_n == want_dec, f"{label}: {dec_n} decode scan launches, want {want_dec}")
+    require(enc_n == 1, f"{label}: {enc_n} encode scan launches, want 1")
+    # one decode launch per stage: z, the base slices, then the stacked
+    # enhancement stage or one per unrolled enhancement slice
+    if not codec._progressive:
+        want_dec = 1 + cfg.M // cfg.dim_chunk
+    elif q == 0:
+        want_dec = 1 + cfg.ns0
+    else:
+        want_dec = 1 + cfg.ns0 + (1 if codec.model.stacked else cfg.num_prog_slices)
+    got = (dec_n, grp_n) if codec.groups == 1 else (grp_n, dec_n)
+    require(got == (want_dec, 0), f"{label}: {got} (decode, grouped decode) launches, want {want_dec}")
+    n_esc = sum(len(e) for e in back["escs"]) if codec.groups > 1 else len(back["esc"])
     bpp = 8 * len(blob) / (b * H * W)
-    log(f"  {label}: {len(blob)} bytes ({bpp:.4f} bpp), {len(data['esc']) // 2} escapes, "
-        f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, "
-        f"launches encode={enc_n} decode={dec_n}, stream_ok, y_hat bit-exact")
-    return {"enc": enc_n, "dec": dec_n, "esc": len(data["esc"])}
+    log(f"  {label}: {len(blob)} bytes ({bpp:.4f} bpp), {n_esc // 2} escapes, "
+        f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, launches encode={enc_n} "
+        f"decode={dec_n} grouped decode={grp_n}, stream_ok, y_hat bit-exact")
+    return {"enc": enc_n, "dec": dec_n, "grouped": grp_n, "esc": n_esc, "y_hat": out["y_hat"]}
+
+
+def seeded_model(cfg, dev, seed=SEED):
+    from progressivecodec_tpu_torch.models.registry import get_model
+    from progressivecodec_tpu_torch.models.weights import init_params
+
+    model = get_model(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(seed)), strict=True)
+    return model
 
 
 def main() -> int:
@@ -469,8 +583,6 @@ def main() -> int:
     from progressivecodec_tpu_torch import build
     from progressivecodec_tpu_torch.config import ModelConfig
     from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
-    from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
-    from progressivecodec_tpu_torch.models.weights import init_params
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -494,30 +606,51 @@ def main() -> int:
     log("phase 3: kernels vs plain twins")
     cfg = ModelConfig()
     t0 = time.perf_counter()
-    model = ChannelProgressiveWACNN(cfg, device=dev)
-    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(SEED)), strict=True)
+    model = seeded_model(cfg, dev)
     codec = GranularCodec(model, lanes=LANES)
     codec.update()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  flagship model {n_params} parameters, tables built in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(codec, dev)
     check_decode_cases(codec, dev)
+    results["rans_decode_scan_grouped"] = check_grouped_cases(codec, dev)
 
-    log("phase 4: main path, flagship ModelConfig() at 768x512")
+    log("phase 4: main paths at 768x512")
+    log("  flagship ModelConfig(), one stream")
     x1 = torch.from_numpy(synthetic_image(1, SEED)).to(dev)
     roundtrip(codec, x1, 10, "warm-up q=10 b=1")
     torch.cuda.reset_peak_memory_stats()
-    main_counts = None
+    counts = {}
     for q in (0, 5, 10):
-        counts = roundtrip(codec, x1, q, f"q={q} b=1")
-        if q == 10:
-            main_counts = counts
+        counts[q] = roundtrip(codec, x1, q, f"q={q} b=1")
+    main_counts = counts[10]
     x8 = torch.from_numpy(synthetic_image(8, SEED + 1)).to(dev)
     roundtrip(codec, x8, 10, "q=10 b=8")
     latent = 80.0 * torch.randn((1, H // 16, W // 16, cfg.M), generator=torch.Generator().manual_seed(SEED),
                                 dtype=torch.float32)
-    counts = roundtrip(codec, x1, 10, "80x-normal latent q=10", latent=latent.to(dev))
-    require(counts["esc"] > 0, "80x-normal latent produced no escapes")
+    esc = roundtrip(codec, x1, 10, "80x-normal latent q=10", latent=latent.to(dev))
+    require(esc["esc"] > 0, "80x-normal latent produced no escapes")
+
+    log(f"  flagship ModelConfig(), PCT1-G: groups=4 at K={LANES} (kt={LANES // 4})")
+    grouped = GranularCodec(model, lanes=LANES, groups=4)
+    roundtrip(grouped, x1, 10, "groups=4 warm-up q=10 b=1")
+    for q in (0, 10):
+        got = roundtrip(grouped, x1, q, f"groups=4 q={q} b=1", want_y_hat=counts[q]["y_hat"])
+    grouped_counts = got
+    del grouped, codec, model
+
+    log("  reference CLI default ModelConfig(multiple_decoder=False, stack_prog=False): unrolled")
+    cli = GranularCodec(seeded_model(ModelConfig(multiple_decoder=False, stack_prog=False), dev), lanes=LANES)
+    roundtrip(cli, x1, 10, "unrolled warm-up q=10 b=1")
+    for q in (0, 5, 10):
+        roundtrip(cli, x1, q, f"unrolled q={q} b=1")
+    del cli
+
+    log("  WACNN ModelConfig(name='cnn', M=320)")
+    wacnn = GranularCodec(seeded_model(ModelConfig(name="cnn", M=320), dev), lanes=LANES)
+    roundtrip(wacnn, x1, 0, "WACNN warm-up q=0 b=1")
+    roundtrip(wacnn, x1, 0, "WACNN q=0 b=1")
+    del wacnn
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     kernels = [
@@ -529,6 +662,11 @@ def main() -> int:
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, **results["rans_decode_scan"]),
+        dict(name="rans_decode_scan_grouped", route="cuda",
+             source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
+             replaces="progressivecodec_tpu/coder/rans_device.py:555",
+             launches=grouped_counts["grouped"], library_ms=None,
+             **results["rans_decode_scan_grouped"]),
     ]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")

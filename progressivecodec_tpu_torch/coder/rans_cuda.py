@@ -1,9 +1,12 @@
-"""The two rANS scans: CUDA kernels for Hopper and their plain PyTorch twins.
+"""The rANS scans: CUDA kernels for Hopper and their plain PyTorch twins.
 
-  rans_encode_scan  replaces coder/rans_pallas.py:encode_scan_rev_pallas
-                    (csrc/rans_encode.cu)
-  rans_decode_scan  replaces coder/rans_device.py:decode_stage_scan
-                    (csrc/rans_decode.cu)
+  rans_encode_scan          replaces coder/rans_pallas.py:encode_scan_rev_pallas
+                            (csrc/rans_encode.cu)
+  rans_decode_scan          replaces coder/rans_device.py:decode_stage_scan
+                            (csrc/rans_decode.cu)
+  rans_decode_scan_grouped  replaces coder/rans_device.py:decode_stage_grouped,
+                            the PCT1-G scan (csrc/rans_decode.cu, one CTA
+                            per group)
 
 Each wrapper takes its route from the device of its tensors: a CPU tensor
 goes to the plain twin, a CUDA tensor launches the kernel.  On CUDA there
@@ -157,30 +160,46 @@ def rans_decode_scan_plain(states: torch.Tensor, offset: torch.Tensor, stream: t
     states (K,) int32 bits, offset (1,) int32, stream (W,) int16 bits (reads
     past its end give 0), idx (P, K) int32 CDF rows, kp (P, K) uint8,
     dec_sf (R*2^16,) int32 bits.  Returns (states (K,) int32 bits, offset
-    (1,) int32, cums (P, K) int32)."""
+    (1,) int32, cums (P, K) int32).  The one-group case of
+    `rans_decode_scan_grouped_plain`."""
+    return rans_decode_scan_grouped_plain(states, offset, stream[None], idx, kp, dec_sf)
+
+
+def rans_decode_scan_grouped_plain(states: torch.Tensor, offsets: torch.Tensor,
+                                   streams: torch.Tensor, idx: torch.Tensor, kp: torch.Tensor,
+                                   dec_sf: torch.Tensor):
+    """The same recursion for G groups of kt = K/G lanes (PCT1-G): group g
+    owns lanes [g*kt, (g+1)*kt), reads stream row g from offsets[g], and
+    ranks its renorm words within the group.
+
+    offsets (G,) int32, streams (G, W) int16 bits (reads past W give 0).
+    Returns (states (K,), offsets (G,), cums (P, K))."""
     p, k = idx.shape
+    g = streams.shape[0]
+    kt = k // g
     dev = states.device
-    x = u32(states)
-    off = offset.to(torch.int64).reshape(())
-    words = stream.to(torch.int64) & 0xFFFF
-    n = words.numel()
+    x = u32(states).reshape(g, kt)
+    off = offsets.to(torch.int64)
+    words = streams.to(torch.int64) & 0xFFFF
+    n = words.shape[1]
     cums = torch.empty((p, k), dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     for r in range(p):
-        keep = kp[r] != 0
+        keep = (kp[r] != 0).reshape(g, kt)
         cum = x & 0xFFFF
-        cums[r] = cum.to(torch.int32)
-        lin = torch.where(keep, (idx[r].to(torch.int64) << 16) + cum, zero)
+        cums[r] = cum.reshape(-1).to(torch.int32)
+        lin = torch.where(keep, (idx[r].to(torch.int64).reshape(g, kt) << 16) + cum, zero)
         sf = u32(dec_sf[lin])
         adv = ((sf & 0xFFFF) * (x >> 16) + cum - (sf >> 16)) & _U32
         flag = keep & (adv < RANS_L)
         fl = flag.to(torch.int64)
-        pos = off + torch.cumsum(fl, 0) - fl
-        word = torch.where(pos < n, words[pos.clamp(max=max(n - 1, 0))], zero) if n else zero
+        pos = off[:, None] + torch.cumsum(fl, 1) - fl
+        word = (torch.where(pos < n, words.gather(1, pos.clamp(max=n - 1)), zero) if n
+                else torch.zeros_like(pos))
         adv = torch.where(flag, ((adv << 16) | word) & _U32, adv)
         x = torch.where(keep, adv, x)
-        off = off + fl.sum()
-    return to_i32(x), off.reshape(1).to(torch.int32), cums
+        off = off + fl.sum(1)
+    return to_i32(x.reshape(-1)), off.to(torch.int32), cums
 
 
 # Constants shared with csrc/rans_decode.cu.
@@ -287,11 +306,16 @@ def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_i
     return total + DECODE_SLOTS * lanes * 5 + ring_words * 2
 
 
+def warp_lanes(kt: int) -> int:
+    """Threads of one decode CTA for kt lanes: whole warps."""
+    return -(-kt // 32) * 32
+
+
 def plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> DecodePlan:
     """The finest bucket shift at which the stage's rows, the idx / keep
-    ring and the stream ring fit `smem_cap` bytes; else the global-table
-    path.  Kept in `compact.plans`.  Raises ValueError if not even the
-    rings fit."""
+    ring and the stream ring of one CTA of `lanes` threads fit `smem_cap`
+    bytes; else the global-table path.  Kept in `compact.plans`.  Raises
+    ValueError if not even the rings fit."""
     key = (tuple(rows), lanes, smem_cap)
     if key not in compact.plans:
         compact.plans[key] = _plan_decode(compact, rows, lanes, smem_cap)
@@ -371,3 +395,69 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
 
 
 rans_decode_scan.launches = 0
+
+
+def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, streams: torch.Tensor,
+                             idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor,
+                             compact: CompactCdf | None = None, rows=None, *,
+                             smem_cap: int | None = None):
+    """Same contract as `rans_decode_scan_grouped_plain`; for CUDA tensors
+    one launch of G CTAs, one per group, of kt lanes rounded up to whole
+    warps (any 1 <= kt <= 1024).  `compact`, `rows` and `smem_cap` as for
+    `rans_decode_scan`; the plan is made at the CTA's width."""
+    dev = states.device
+    _check("states", states, torch.int32, 1, dev)
+    _check("offsets", offsets, torch.int32, 1, dev)
+    _check("streams", streams, torch.int16, 2, dev)
+    _check("idx", idx, torch.int32, 2, dev)
+    _check("kp", kp, torch.uint8, 2, dev)
+    _check("dec_sf", dec_sf, torch.int32, 1, dev)
+    p, k = idx.shape
+    g = streams.shape[0]
+    if (kp.shape != idx.shape or states.shape[0] != k or offsets.shape[0] != g or g < 1
+            or k % g):
+        raise ValueError("rans_decode_scan_grouped: inconsistent shapes")
+    if dev.type == "cpu":
+        return rans_decode_scan_grouped_plain(states, offsets, streams, idx, kp, dec_sf)
+    if dev.type != "cuda":
+        raise ValueError(f"rans_decode_scan_grouped: unsupported device {dev}")
+    kt = k // g
+    lanes = warp_lanes(kt)
+    if lanes > 1024:
+        raise ValueError(f"rans_decode_scan_grouped kernel needs lanes per group <= 1024; got {kt}")
+    if compact is None or compact.device != dev:
+        raise ValueError(f"rans_decode_scan_grouped kernel needs the CompactCdf tables on {dev}")
+    cap = smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
+    rows = rows or (0, compact.meta.shape[0])
+    plan = plan_decode(compact, rows, lanes, cap)
+    if streams.shape[1] % 8:  # rows 16 bytes apart; the zeros read as past the end
+        streams = torch.nn.functional.pad(streams, (0, -streams.shape[1] % 8))
+    if kt % 16:
+        # the kernel copies 16 bytes at a time: stage each group's columns
+        # into a block of whole warps, padding lanes keeping nothing
+        idx = torch.nn.functional.pad(idx.reshape(p, g, kt), (0, lanes - kt)).transpose(0, 1).contiguous()
+        kp = torch.nn.functional.pad(kp.reshape(p, g, kt), (0, lanes - kt)).transpose(0, 1).contiguous()
+        in_group, in_row = p * lanes, lanes
+    else:
+        in_group, in_row = kt, k
+    streams, idx, kp = _aligned(streams), _aligned(idx), _aligned(kp)
+    buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
+    states_out = torch.empty((k,), dtype=torch.int32, device=dev)
+    offsets_out = torch.empty((g,), dtype=torch.int32, device=dev)
+    cums = torch.empty((p, k), dtype=torch.int32, device=dev)
+    ci, cl = ctypes.c_int, ctypes.c_longlong
+    fn = _fn("rans_decode", "rans_decode_scan_grouped", _VP, _VP, _VP, cl, _VP, _VP, cl, ci,
+             _VP, _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, ci, ci, _VP)
+    rc = fn(states.data_ptr(), offsets.data_ptr(), streams.data_ptr(), streams.shape[1],
+            idx.data_ptr(), kp.data_ptr(), in_group, in_row, compact.starts.data_ptr(), buckets,
+            compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
+            plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
+            states_out.data_ptr(), offsets_out.data_ptr(), cums.data_ptr(), p, g, kt, lanes,
+            _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"rans_decode_scan_grouped kernel launch failed: cudaError {rc}")
+    rans_decode_scan_grouped.launches += 1
+    return states_out, offsets_out, cums
+
+
+rans_decode_scan_grouped.launches = 0

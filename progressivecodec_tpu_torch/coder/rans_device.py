@@ -1,11 +1,18 @@
-"""On-device interleaved rANS (PCT1 format) in PyTorch, around two CUDA scans.
+"""On-device interleaved rANS (PCT1 and PCT1-G formats) in PyTorch, around
+CUDA scans.
 
-Counterpart of `progressivecodec_tpu/coder/rans_device.py` for one stream
-(groups=1).  The flat phases are plain PyTorch: grids, escapes, the
-(start, freq) pre-gather, payload and escape compaction by cumsum +
-scatter, value recovery.  The two scans dispatch to `rans_cuda`:
-`encode_scan_rev` -> `rans_encode_scan`, `decode_stage_scan` ->
-`rans_decode_scan` (kernels on CUDA tensors, plain twins on CPU tensors).
+Counterpart of `progressivecodec_tpu/coder/rans_device.py`.  The flat
+phases are plain PyTorch: grids, escapes, the (start, freq) pre-gather,
+payload and escape compaction by cumsum + scatter, value recovery.  The
+scans dispatch to `rans_cuda`: `encode_scan_rev` -> `rans_encode_scan`,
+`decode_stage_scan` -> `rans_decode_scan`, `decode_stage_grouped_scan` ->
+`rans_decode_scan_grouped` (kernels on CUDA tensors, plain twins on CPU
+tensors).
+
+PCT1-G splits the K lanes into G groups of kt = K/G lanes; group g's
+sub-stream is the standalone PCT1 encoding of its lanes' symbols with kt
+lanes.  The grouped encoder runs one encode scan over all K lanes (the
+groups never interact) and compacts each group's words and escapes.
 
 Tensor types: u32 quantities (table entries, lane states) are int32 bit
 patterns, stream words int16 bit patterns, keep/flag grids uint8; payload
@@ -137,10 +144,18 @@ def encode_prepare(stages, t: DeviceTables, lanes: int = DEFAULT_LANES):
 
 def encode_scan_rev(sf_rev, kp_rev, lanes: int):
     """Phase 2: the reverse-position encode scan (CUDA kernel on the card).
-    Returns (states (K,) int32 bits, words_rev (P, K) int16, flags_rev (P, K) uint8)."""
+    Returns (states (K,) int32 bits, words_rev (P, K) int16, flags_rev (P, K) uint8).
+    The kernel takes whole warps of lanes: a grouped K that is not a
+    multiple of 32 runs padded with lanes that keep nothing."""
     if sf_rev.shape[1] != lanes:
         raise ValueError(f"grid has {sf_rev.shape[1]} lanes, want {lanes}")
-    return rans_cuda.rans_encode_scan(sf_rev, kp_rev)
+    pad = -lanes % 32
+    if not pad:
+        return rans_cuda.rans_encode_scan(sf_rev, kp_rev)
+    states, words, flags = rans_cuda.rans_encode_scan(
+        torch.nn.functional.pad(sf_rev, (0, pad)), torch.nn.functional.pad(kp_rev, (0, pad))
+    )
+    return states[:lanes], words[:, :lanes].contiguous(), flags[:, :lanes].contiguous()
 
 
 def encode_finalize(states, words_rev, flags_rev, esc_flags, sym, lanes: int):
@@ -226,6 +241,107 @@ def decode_stage_values(esc_offset, cums, esc, indexes, keep, t: DeviceTables,
     return esc_offset + 2 * n_esc.to(I32), vals
 
 
-def stream_ok(dec: DecoderState) -> torch.Tensor:
-    """Every lane state back at L: the end-to-end integrity signal."""
+def stream_ok(dec) -> torch.Tensor:
+    """Every lane state back at L: the end-to-end integrity signal (a
+    DecoderState or a GroupedDecoderState)."""
     return (u32(dec.states) == RANS_L).all()
+
+
+# ---------------------------------------------------------------------------
+# PCT1-G: G independent sub-streams of kt = K/G lanes
+# ---------------------------------------------------------------------------
+
+
+class GroupedDecoderState(NamedTuple):
+    states: torch.Tensor  # (K,) int32 bits, all groups' lane states
+    offsets: torch.Tensor  # (G,) int32, each group's next payload word
+    esc_offsets: torch.Tensor  # (G,) int32, each group's next escape word
+
+
+grouped_stream_ok = stream_ok
+
+
+def _to_groups(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(P, K) -> (G, P*kt): each group's cells in (position, local lane) order."""
+    p, k = x.shape
+    return x.reshape(p, groups, k // groups).transpose(0, 1).reshape(groups, -1)
+
+
+def encode_stages_grouped(stages, t: DeviceTables, lanes: int = DEFAULT_LANES, groups: int = 1):
+    """All stages as G sub-streams.  Returns (streams (G, 2kt + P*kt) int16,
+    n_words (G,), escs (G, 2*P*kt) int16, n_escs (G,)); the words of group g
+    are byte-identical to the single-stream encoding of its lanes with kt
+    lanes."""
+    if lanes % groups:
+        raise ValueError(f"lanes {lanes} is not a multiple of groups {groups}")
+    kt = lanes // groups
+    sf_rev, kp_rev, esc_flags, sym = encode_prepare(stages, t, lanes)
+    states, words_rev, flags_rev = encode_scan_rev(sf_rev, kp_rev, lanes)
+    gw = _to_groups(words_rev.flip(0), groups)
+    gf = _to_groups(flags_rev.flip(0), groups).bool()
+    cap = gw.shape[1]
+    dev = gw.device
+    pos = torch.cumsum(gf.to(torch.int64), 1) - 1
+    payload = torch.zeros((groups, cap + 1), dtype=torch.int16, device=dev)
+    payload.scatter_(1, torch.where(gf, pos, cap), gw)
+
+    ge = _to_groups(esc_flags, groups)
+    epos = torch.cumsum(ge.to(torch.int64), 1) - 1
+    raw = _to_groups(sym, groups).to(torch.int64)
+    tgt = torch.where(ge, 2 * epos, 2 * cap)
+    escs = torch.zeros((groups, 2 * cap + 2), dtype=torch.int16, device=dev)
+    escs.scatter_(1, tgt, to_i16(raw))
+    escs.scatter_(1, tgt + 1, to_i16(raw >> 16))
+
+    st = u32(states).reshape(groups, kt)
+    head = torch.stack([to_i16(st), to_i16(st >> 16)], dim=2).reshape(groups, 2 * kt)
+    streams = torch.cat([head, payload[:, :cap]], dim=1)
+    return streams, gf.sum(1) + 2 * kt, escs[:, : 2 * cap], ge.sum(1)
+
+
+def grouped_decoder_init(streams: torch.Tensor, lanes: int, groups: int) -> GroupedDecoderState:
+    """streams (G, W) int16: each row a PCT1 sub-stream of kt = K/G lanes."""
+    kt = lanes // groups
+    head = streams[:, : 2 * kt].to(torch.int64) & 0xFFFF
+    dev = streams.device
+    return GroupedDecoderState(
+        states=to_i32(head[:, 0::2] | (head[:, 1::2] << 16)).reshape(-1),
+        offsets=torch.full((groups,), 2 * kt, dtype=I32, device=dev),
+        esc_offsets=torch.zeros((groups,), dtype=I32, device=dev),
+    )
+
+
+def decode_stage_grouped_scan(dec: GroupedDecoderState, streams, indexes_grid, keep_grid,
+                              t: DeviceTables, lanes: int = DEFAULT_LANES, rows=None):
+    """The decode state recursion of one stage for every group in one
+    launch (CUDA kernel on the card).  Returns (states, offsets, cums)."""
+    if indexes_grid.shape[1] != lanes:
+        raise ValueError(f"grid has {indexes_grid.shape[1]} lanes, want {lanes}")
+    return rans_cuda.rans_decode_scan_grouped(
+        dec.states, dec.offsets, streams, indexes_grid, keep_grid, t.dec_sf, t.compact, rows
+    )
+
+
+def decode_stage_grouped_values(esc_offsets, cums, escs, indexes, keep, t: DeviceTables,
+                                lanes: int, groups: int):
+    """Decoded values in global symbol order from the grouped scan's cums;
+    escape sentinels take their exact int32 from their group's escape row
+    (G, E), in group order.  Returns (esc_offsets', values (n,) int32)."""
+    n = indexes.shape[0]
+    idx = _pad_to_grid(indexes.to(I32), lanes)
+    kp = _pad_to_grid(keep.bool(), lanes)
+    p = idx.shape[0]
+    vals = t.dec_val[(idx.to(torch.int64) << 16) + cums.to(torch.int64)]
+    vals = torch.where(kp, vals, torch.zeros((), dtype=I32, device=vals.device))
+    idx_g = _to_groups(idx, groups).to(torch.int64)
+    vals_g = _to_groups(vals, groups)
+    sentinel = t.offset[idx_g] + t.max_symbol[idx_g] + 1
+    esc_flag = _to_groups(kp, groups) & (vals_g == sentinel)
+    n_esc = esc_flag.sum(1)
+    j = esc_offsets.to(torch.int64)[:, None] + 2 * (torch.cumsum(esc_flag.to(torch.int64), 1) - 1)
+    safe = torch.where(esc_flag, j, 0).clamp(0, escs.shape[1] - 2)
+    words = escs.to(torch.int64) & 0xFFFF
+    raw = to_i32(words.gather(1, safe) | (words.gather(1, safe + 1) << 16))
+    vals_g = torch.where(esc_flag, raw, vals_g)
+    vals = vals_g.reshape(groups, p, lanes // groups).transpose(0, 1).reshape(-1)[:n]
+    return esc_offsets + 2 * n_esc.to(I32), vals

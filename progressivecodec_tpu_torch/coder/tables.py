@@ -53,13 +53,32 @@ WORD_BITS = 16
 DEFAULT_LANES = 512
 # The decode kernel runs one CTA of K threads in whole warps.
 MIN_LANES, MAX_LANES = 32, 1024
+# A container holds the lane count in 16 bits and the group count in 8.
+MAX_GROUPS, MAX_GROUPED_LANES = 255, 0xFFFF
 
 
-def check_lanes(lanes) -> int:
-    """Raise ValueError unless `lanes` is a multiple of 32 in [32, 1024]."""
-    if int(lanes) != lanes or not MIN_LANES <= lanes <= MAX_LANES or lanes % 32:
+def check_groups(groups) -> int:
+    """Raise ValueError unless `groups` is an integer in [1, 255]."""
+    if int(groups) != groups or not 1 <= groups <= MAX_GROUPS:
+        raise ValueError(f"groups must be an integer in [1, {MAX_GROUPS}], got {groups!r}")
+    return int(groups)
+
+
+def check_lanes(lanes, groups: int = 1) -> int:
+    """Raise ValueError unless `lanes` suits `groups` streams.  One stream:
+    a multiple of 32 in [32, 1024] (one decode CTA of whole warps).  G > 1
+    (PCT1-G): a multiple of G with at most 1024 lanes per group (each group
+    one CTA, rounded up to whole warps) and at most 65535 in all."""
+    if groups == 1:
+        if int(lanes) != lanes or not MIN_LANES <= lanes <= MAX_LANES or lanes % 32:
+            raise ValueError(
+                f"lanes must be a multiple of 32 in [{MIN_LANES}, {MAX_LANES}], got {lanes!r}"
+            )
+    elif (int(lanes) != lanes or not groups <= lanes <= MAX_GROUPED_LANES or lanes % groups
+          or lanes // groups > MAX_LANES):
         raise ValueError(
-            f"lanes must be a multiple of 32 in [{MIN_LANES}, {MAX_LANES}], got {lanes!r}"
+            f"lanes must be a multiple of groups={groups} in [{groups}, {MAX_GROUPED_LANES}] "
+            f"with at most {MAX_LANES} per group, got {lanes!r}"
         )
     return int(lanes)
 

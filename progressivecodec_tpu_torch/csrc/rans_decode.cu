@@ -1,10 +1,12 @@
 // PCT1 interleaved-rANS decode scan of one stage, for Hopper (sm_90a).
 //
-// Replaces progressivecodec_tpu/coder/rans_device.py:decode_stage_scan, an
-// XLA lax.scan with no Pallas version (PyTorch has no scan, and a Python
-// loop would cost about ten launches per row).  Plain PyTorch twin:
-// progressivecodec_tpu_torch/coder/rans_cuda.py:rans_decode_scan_plain,
-// which reaches each symbol through the 64 MiB dec_sf table instead.
+// Replaces progressivecodec_tpu/coder/rans_device.py:decode_stage_scan and
+// its PCT1-G form decode_stage_grouped, XLA lax.scans with no Pallas
+// version (PyTorch has no scan, and a Python loop would cost about ten
+// launches per row).  Plain PyTorch twins:
+// progressivecodec_tpu_torch/coder/rans_cuda.py:rans_decode_scan_plain and
+// rans_decode_scan_grouped_plain, which reach each symbol through the
+// 64 MiB dec_sf table instead.
 //
 // What it computes: K lanes walk P rows in decode order.  Per row and lane,
 // with CDF row idx and keep flag k:
@@ -18,6 +20,11 @@
 // state = k ? (flag ? adv<<16 | word : adv) : state.
 // Outputs: cums (P,K) i32, final states (K) and final offset.
 //
+// PCT1-G (grouped): the K lanes form G groups of kt = K/G lanes; group g
+// owns lanes [g*kt, (g+1)*kt), its own stream row and its own offset, and
+// the rank and the offset above run within the group.  One launch decodes
+// every group: CTA g is group g.  The single stream is the case G = 1.
+//
 // What bounds it: the lanes are coupled through that prefix count and the
 // shared offset, so the time is P times the latency of one row; the bytes
 // it moves (about 9 per cell) would take a few microseconds.  On this
@@ -26,8 +33,10 @@
 // and the K/32 warps share one SM's shared-memory pipe; PERF.md (PR 2)
 // gives the measured time per row and its split.
 //
-// What the design does about it: one CTA of K threads, one lane each, and
-// nothing but shared memory on the row's dependent chain.
+// What the design does about it: one CTA of kt threads per group (rounded
+// up to whole warps; a padding thread keeps nothing, takes no word and
+// stores nothing), one lane each, and nothing but shared memory on the
+// row's dependent chain.  Every CTA brings the stage's table on chip.
 //   * The stage's CDF rows (starts as u16, the row's n+1 entries, the last
 //     one 65536 stored as 0) come into dynamic shared memory at launch, with
 //     a bucket table per row: bucket b holds the symbol at cum = b << shift,
@@ -45,7 +54,9 @@
 //     of the stream give 0 (zero-filled copies).
 //   * idx and keep come kDepth rows ahead through a ring of the same kind;
 //     a lane reads its next row's inputs at the top of the current row, off
-//     the chain.
+//     the chain.  The copies are 16 bytes, so a group's columns are read in
+//     place only when kt % 16 == 0; the wrapper stages other groups into
+//     padded blocks of whole warps first.
 //   * The renorm rank: __ballot_sync + __popc within the warp; each warp's
 //     count is one byte in shared memory, so after the one __syncthreads of
 //     the row lane l of every warp reads warp l's count and two
@@ -66,12 +77,14 @@ constexpr int kChunk = 256;               // stream words per warp copy: 32 thre
 constexpr uint32_t kRunFlag = 0x8000u;    // bucket of freq-1 symbols only
 
 struct DecodeArgs {
-  const uint32_t* states_in;
-  const int32_t* offset_in;
-  const uint16_t* stream;
-  long long n_stream;
-  const int32_t* idx;
-  const uint8_t* kp;
+  const uint32_t* states_in;  // (K,)
+  const int32_t* offset_in;   // (G,)
+  const uint16_t* stream;     // group g's row at stream + g * n_stream
+  long long n_stream;         // words of each row; reads past it give 0
+  const int32_t* idx;         // group g's (P, kt) block at idx + g * in_group,
+  const uint8_t* kp;          // rows in_row apart; the same for kp
+  long long in_group;
+  int in_row;
   const uint16_t* starts;   // compact CDF table, all rows
   const uint16_t* buckets;  // the stage's rows of the table at `shift`
   const int2* meta;         // (R,) {base in starts, n symbols}
@@ -79,10 +92,11 @@ struct DecodeArgs {
   int span_base, span_len;  // their entries in starts (multiples of 8)
   int shift, bucket_stride; // buckets in shared memory
   int ring_words;           // stream ring, a power of two
-  uint32_t* states_out;
-  int32_t* offset_out;
-  int32_t* cums;
-  int rows, lanes;
+  uint32_t* states_out;  // (K,)
+  int32_t* offset_out;   // (G,)
+  int32_t* cums;         // (P, K): group g's columns from g * kt
+  int rows, kt;          // rows and lanes of one group
+  int lanes;             // threads per CTA: kt rounded up to whole warps
 };
 
 struct Layout {
@@ -126,48 +140,55 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // This thread's share of a refill of kRefill rows of idx and keep: one
 // 16-byte copy of idx (row j_idx of the refill, column c_idx), and one of
-// keep for threads below lanes / 4.  Fixed per thread, worked out once.
+// keep for threads below lanes / 4; none for a chunk that starts at or past
+// the group's kt columns.  Fixed per thread, worked out once.
 struct RowCopy {
-  int j_idx, c_idx, j_kp, c_kp;  // j_kp < 0: no keep copy
+  int j_idx, c_idx, j_kp, c_kp;  // j < 0: no copy
 };
 
-__device__ __forceinline__ RowCopy row_copy(int lanes) {
+template <bool kGrouped>
+__device__ __forceinline__ RowCopy row_copy(int lanes, int kt) {
   const int t = threadIdx.x;
   const int q = lanes >> 2;   // idx copies per row
   const int qk = lanes >> 4;  // keep copies per row
   RowCopy c;
-  c.j_idx = t / q;
   c.c_idx = 4 * (t % q);
-  c.j_kp = t < kRefill * qk ? t / qk : -1;
+  c.j_idx = !kGrouped || c.c_idx < kt ? t / q : -1;
   c.c_kp = 16 * (t % qk);
+  c.j_kp = t < kRefill * qk && (!kGrouped || c.c_kp < kt) ? t / qk : -1;
   return c;
 }
 
-// Rows [r0, r0 + kRefill) of idx and keep (those below `rows`) into ring
-// slots row % kSlots.
-__device__ __forceinline__ void issue_rows(const DecodeArgs& a, const RowCopy& c, int32_t* idx_ring,
-                                           uint8_t* kp_ring, int r0) {
+// Rows [r0, r0 + kRefill) of this group's idx and keep (those below
+// `rows`) into ring slots row % kSlots.
+template <bool kGrouped>
+__device__ __forceinline__ void issue_rows(const DecodeArgs& a, const RowCopy& c, const int32_t* idx,
+                                           const uint8_t* kp, int32_t* idx_ring, uint8_t* kp_ring,
+                                           int r0) {
   const int rr = r0 + c.j_idx;
-  if (rr < a.rows)
+  if ((!kGrouped || c.j_idx >= 0) && rr < a.rows)
     cp_async16(idx_ring + (rr % kSlots) * a.lanes + c.c_idx,
-               a.idx + static_cast<size_t>(rr) * a.lanes + c.c_idx, 16);
+               idx + static_cast<size_t>(rr) * a.in_row + c.c_idx, 16);
   const int rk = r0 + c.j_kp;
   if (c.j_kp >= 0 && rk < a.rows)
     cp_async16(kp_ring + (rk % kSlots) * a.lanes + c.c_kp,
-               a.kp + static_cast<size_t>(rk) * a.lanes + c.c_kp, 16);
+               kp + static_cast<size_t>(rk) * a.in_row + c.c_kp, 16);
 }
 
-// Stream chunk c (words [c*kChunk, (c+1)*kChunk)) into the ring, by one warp.
-__device__ __forceinline__ void issue_chunk(const DecodeArgs& a, uint16_t* ring, long long c) {
+// Stream chunk c (words [c*kChunk, (c+1)*kChunk)) of this group's row into
+// the ring, by one warp.
+__device__ __forceinline__ void issue_chunk(const DecodeArgs& a, const uint16_t* stream, uint16_t* ring,
+                                            long long c) {
   const int wl = threadIdx.x & 31;
   const long long p0 = c * kChunk + 8 * wl;
   const long long avail = a.n_stream - p0;
   const int bytes = avail >= 8 ? 16 : (avail > 0 ? static_cast<int>(avail) * 2 : 0);
-  cp_async16(ring + ((c * kChunk) & (a.ring_words - 1)) + 8 * wl, bytes ? a.stream + p0 : a.stream,
-             bytes);
+  cp_async16(ring + ((c * kChunk) & (a.ring_words - 1)) + 8 * wl, bytes ? stream + p0 : stream, bytes);
 }
 
-template <bool kSmemTable>
+// kGrouped = false is the single stream: one CTA, kt = lanes, so the group
+// offsets and the padding tests compile away.
+template <bool kSmemTable, bool kGrouped>
 __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(a, kSmemTable);
@@ -180,6 +201,7 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem + l.ring);
 
   const int t = threadIdx.x;
+  const int g = kGrouped ? blockIdx.x : 0;  // the group
   const int lanes = a.lanes;
   const int warp = t >> 5;
   const int wl = t & 31;
@@ -187,12 +209,17 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   const unsigned below = (1u << wl) - 1u;
   const int ring_mask = a.ring_words - 1;
   const int ring_chunks = a.ring_words / kChunk;
+  const bool live = !kGrouped || t < a.kt;  // not a padding thread
+  const int lane = g * a.kt + t;  // column in the (P, K) grids
+  const uint16_t* stream = a.stream + g * a.n_stream;
+  const int32_t* idx = a.idx + g * a.in_group;
+  const uint8_t* kp = a.kp + g * a.in_group;
 
-  uint32_t x = a.states_in[t];
-  int offset = a.offset_in[0];
+  uint32_t x = live ? a.states_in[lane] : kRansL;
+  int offset = a.offset_in[g];
   if (a.rows == 0) {
-    a.states_out[t] = x;
-    if (t == 0) a.offset_out[0] = offset;
+    if (live) a.states_out[lane] = x;
+    if (t == 0) a.offset_out[g] = offset;
     return;
   }
 
@@ -208,10 +235,11 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     for (int c = t; c < a.nrows * a.bucket_stride / 8; c += lanes)
       cp_async16(bucket_s + 8 * c, a.buckets + 8 * c, 16);
   }
-  const RowCopy rcopy = row_copy(lanes);
-  for (int rr = 0; rr < kDepth; rr += kRefill) issue_rows(a, rcopy, idx_ring, kp_ring, rr);
+  const RowCopy rcopy = row_copy<kGrouped>(lanes, a.kt);
+  for (int rr = 0; rr < kDepth; rr += kRefill)
+    issue_rows<kGrouped>(a, rcopy, idx, kp, idx_ring, kp_ring, rr);
   long long filled = offset / kChunk;  // next chunk to copy
-  for (int c = warp; c < ring_chunks; c += nwarps) issue_chunk(a, ring, filled + c);
+  for (int c = warp; c < ring_chunks; c += nwarps) issue_chunk(a, stream, ring, filled + c);
   filled += ring_chunks;
   cp_async_commit();
   cp_async_wait<0>();
@@ -225,7 +253,7 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   auto load_row = [&](int rr) {
     const int slot = (rr % kSlots) * lanes + t;
     RowIn in;
-    in.keep = rr < a.rows && kp_ring[slot] != 0;
+    in.keep = live && rr < a.rows && kp_ring[slot] != 0;
     const int rel = min(max(idx_ring[slot] - a.row0, 0), a.nrows - 1);
     in.bbase = rel * a.bucket_stride;
     in.rn = 1;
@@ -241,15 +269,16 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   RowIn cur = load_row(0);
   const uint16_t* starts = kSmemTable ? starts_s : a.starts;
 
-  size_t i = t;
-  for (int r = 0; r < a.rows; ++r, i += lanes) {
+  size_t i = lane;
+  const size_t out_row = kGrouped ? static_cast<size_t>(gridDim.x) * a.kt : lanes;  // K
+  for (int r = 0; r < a.rows; ++r, i += out_row) {
     // the next row's inputs do not depend on the state: their loads go out
     // first and land while this row's chain runs
     const RowIn next_in = load_row(r + 1);
     const bool keep = cur.keep;
     const int rbase = cur.rbase, rn = cur.rn, bbase = cur.bbase;
     const uint32_t cum = x & 0xFFFFu;
-    a.cums[i] = static_cast<int32_t>(cum);
+    if (live) a.cums[i] = static_cast<int32_t>(cum);
     // every lane runs the lookup (a lane that keeps nothing searches an
     // empty range), so a warp leaves the search loop together
     uint32_t lo, hi, e = 0u;
@@ -301,10 +330,10 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     // refill every kRefill rows: idx / keep kDepth rows ahead, the stream
     // chunks wholly below offset
     if (r % kRefill == 0) {
-      issue_rows(a, rcopy, idx_ring, kp_ring, r + kDepth);
+      issue_rows<kGrouped>(a, rcopy, idx, kp, idx_ring, kp_ring, r + kDepth);
       const long long free_chunks = offset / kChunk + ring_chunks - filled;
       const int n_issue = static_cast<int>(min(free_chunks, static_cast<long long>(nwarps)));
-      if (warp < n_issue) issue_chunk(a, ring, filled + warp);
+      if (warp < n_issue) issue_chunk(a, stream, ring, filled + warp);
       filled += max(n_issue, 0);
       cp_async_commit();
     }
@@ -313,17 +342,17 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     cur = next_in;
   }
   cp_async_wait<0>();
-  a.states_out[t] = x;
-  if (t == 0) a.offset_out[0] = offset;
+  if (live) a.states_out[lane] = x;
+  if (t == 0) a.offset_out[g] = offset;
 }
 
 constexpr int kMaxDevices = 64;
 
-template <bool kSmemTable>
-int launch(const DecodeArgs& a, int smem_cap, cudaStream_t stream) {
+template <bool kSmemTable, bool kGrouped>
+int launch(const DecodeArgs& a, int groups, int smem_cap, cudaStream_t stream) {
   const int bytes = layout(a, kSmemTable).total;
   if (bytes > smem_cap) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = rans_decode_scan_kernel<kSmemTable>;
+  auto kernel = rans_decode_scan_kernel<kSmemTable, kGrouped>;
   // lift the kernel's dynamic shared-memory limit to the device's opt-in
   // maximum, once per device (setting it twice from racing threads is
   // harmless)
@@ -339,39 +368,25 @@ int launch(const DecodeArgs& a, int smem_cap, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) lifted[device].store(true, std::memory_order_relaxed);
   }
-  kernel<<<1, a.lanes, bytes, stream>>>(a);
+  kernel<<<groups, a.lanes, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// C interface for ctypes.  Every pointer is a device pointer; `stream` is a
-// cudaStream_t.  The wrapper's plan_decode picks shift, bucket_stride and
-// ring_words with the same layout; the launch refuses more than smem_cap
-// bytes.  Needs 32 <= lanes <= 1024, lanes % 32 == 0, stream, idx and
-// kp 16-byte aligned, and ring_words a power of two >=
-// 2 * kRefill * lanes + kChunk.  Returns cudaGetLastError() after the
-// launch (0 = launched).
-extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
-                                const void* stream_words, long long n_stream, const void* idx,
-                                const void* kp, const void* starts, const void* buckets,
-                                const void* meta, int row0, int nrows, int span_base, int span_len,
-                                int shift, int bucket_stride, int ring_words, int table_in_smem,
-                                int smem_cap, void* states_out, void* offset_out, void* cums,
-                                int rows, int lanes, void* stream) {
-  if (lanes < 32 || lanes > 1024 || lanes % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (ring_words < 2 * kRefill * lanes + kChunk || (ring_words & (ring_words - 1)) != 0 || nrows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+// Checks shared by both entries, then the launch of `groups` CTAs.
+template <bool kGrouped>
+int run(DecodeArgs& a, int groups, const void* starts, const void* buckets, const void* meta, int row0,
+        int nrows, int span_base, int span_len, int shift, int bucket_stride, int ring_words,
+        int table_in_smem, int smem_cap, void* states_out, void* offset_out, void* cums, int rows,
+        void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (groups < 1 || a.kt < 1 || a.kt > 1024 || a.lanes % 32 || a.lanes < a.kt || a.lanes - a.kt >= 32)
+    return bad;
+  if (ring_words < 2 * kRefill * a.lanes + kChunk || (ring_words & (ring_words - 1)) != 0 || nrows < 1)
+    return bad;
+  if (a.in_row % 16 || a.in_group % 16 || rows < 0) return bad;
   if (table_in_smem && (shift < 1 || shift > 16 || bucket_stride % 8 || span_base % 8 ||
                         span_len % 8 || span_len > 65536))
-    return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a;
-  a.states_in = static_cast<const uint32_t*>(states_in);
-  a.offset_in = static_cast<const int32_t*>(offset_in);
-  a.stream = static_cast<const uint16_t*>(stream_words);
-  a.n_stream = n_stream;
-  a.idx = static_cast<const int32_t*>(idx);
-  a.kp = static_cast<const uint8_t*>(kp);
+    return bad;
   a.starts = static_cast<const uint16_t*>(starts);
   a.buckets = static_cast<const uint16_t*>(buckets);
   a.meta = static_cast<const int2*>(meta);
@@ -386,7 +401,72 @@ extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
   a.offset_out = static_cast<int32_t*>(offset_out);
   a.cums = static_cast<int32_t*>(cums);
   a.rows = rows;
-  a.lanes = lanes;
   auto s = static_cast<cudaStream_t>(stream);
-  return table_in_smem ? launch<true>(a, smem_cap, s) : launch<false>(a, smem_cap, s);
+  return table_in_smem ? launch<true, kGrouped>(a, groups, smem_cap, s)
+                       : launch<false, kGrouped>(a, groups, smem_cap, s);
+}
+
+}  // namespace
+
+// C interface for ctypes.  Every pointer is a device pointer; `stream` is a
+// cudaStream_t.  The wrapper's plan_decode picks shift, bucket_stride and
+// ring_words with the same layout; the launch refuses more than smem_cap
+// bytes.  Both need the compact table's arguments as planned, starts,
+// buckets and the idx / keep blocks 16-byte aligned, and ring_words a power
+// of two >= 2 * kRefill * (CTA threads) + kChunk.  They return
+// cudaGetLastError() after the launch (0 = launched).
+
+// One stream of `lanes` lanes: 32 <= lanes <= 1024, lanes % 32 == 0; idx
+// and kp (rows, lanes), stream (n_stream,) with the stream 16-byte aligned.
+extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
+                                const void* stream_words, long long n_stream, const void* idx,
+                                const void* kp, const void* starts, const void* buckets,
+                                const void* meta, int row0, int nrows, int span_base, int span_len,
+                                int shift, int bucket_stride, int ring_words, int table_in_smem,
+                                int smem_cap, void* states_out, void* offset_out, void* cums,
+                                int rows, int lanes, void* stream) {
+  if (lanes < 32 || lanes > 1024 || lanes % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a;
+  a.states_in = static_cast<const uint32_t*>(states_in);
+  a.offset_in = static_cast<const int32_t*>(offset_in);
+  a.stream = static_cast<const uint16_t*>(stream_words);
+  a.n_stream = n_stream;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.in_group = 0;
+  a.in_row = lanes;
+  a.kt = lanes;
+  a.lanes = lanes;
+  return run<false>(a, 1, starts, buckets, meta, row0, nrows, span_base, span_len, shift, bucket_stride,
+             ring_words, table_in_smem, smem_cap, states_out, offset_out, cums, rows, stream);
+}
+
+// G = `groups` streams of kt lanes each (K = groups * kt lanes in all),
+// one CTA of `lanes` threads each (kt rounded up to whole warps, kt <=
+// 1024).  states_in (K,), offset_in (G,), streams (G, row_words) with
+// row_words % 8 == 0; group g's idx / kp block starts at element
+// g * in_group and its rows lie in_row elements apart (in_row, in_group
+// multiples of 16); cums (rows, K).
+extern "C" int rans_decode_scan_grouped(const void* states_in, const void* offset_in,
+                                        const void* streams, long long row_words, const void* idx,
+                                        const void* kp, long long in_group, int in_row,
+                                        const void* starts, const void* buckets, const void* meta,
+                                        int row0, int nrows, int span_base, int span_len, int shift,
+                                        int bucket_stride, int ring_words, int table_in_smem,
+                                        int smem_cap, void* states_out, void* offset_out, void* cums,
+                                        int rows, int groups, int kt, int lanes, void* stream) {
+  if (row_words % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte aligned rows
+  DecodeArgs a;
+  a.states_in = static_cast<const uint32_t*>(states_in);
+  a.offset_in = static_cast<const int32_t*>(offset_in);
+  a.stream = static_cast<const uint16_t*>(streams);
+  a.n_stream = row_words;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.in_group = in_group;
+  a.in_row = in_row;
+  a.kt = kt;
+  a.lanes = lanes;
+  return run<true>(a, groups, starts, buckets, meta, row0, nrows, span_base, span_len, shift, bucket_stride,
+             ring_words, table_in_smem, smem_cap, states_out, offset_out, cums, rows, stream);
 }

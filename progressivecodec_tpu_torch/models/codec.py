@@ -17,7 +17,7 @@ import torch
 
 from progressivecodec_tpu_torch.coder.rans_device import DeviceTables
 from progressivecodec_tpu_torch.coder.tables import (
-    DEFAULT_LANES, PRECISION, check_lanes, merge_tables,
+    DEFAULT_LANES, PRECISION, check_groups, check_lanes, merge_tables,
 )
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import build_bottleneck_tables
@@ -39,10 +39,11 @@ def words_np(x) -> np.ndarray:
 class Codec:
     """Model + coder tables + container format."""
 
-    def __init__(self, model, lanes: int = DEFAULT_LANES):
+    def __init__(self, model, lanes: int = DEFAULT_LANES, groups: int = 1):
         self.model = model
         self.cfg: ModelConfig = model.cfg
-        self.lanes = check_lanes(lanes)
+        self.groups = check_groups(groups)
+        self.lanes = check_lanes(lanes, self.groups)
         self._tables = None
         self._device_tables = None
         self._gauss_row0 = None
@@ -78,16 +79,22 @@ class Codec:
 
     def serialize(self, data: dict) -> bytes:
         """Container: magic | version u8 | quality f32 | batch u16 | z_h u16 |
-        z_w u16 | lanes u16 | groups u8 | mask_pol len u8 + utf8 |
-        n_words u32 | n_esc_words u32 | words | escape words."""
+        z_w u16 | lanes u16 | groups u8 | mask_pol len u8 + utf8 | per group
+        (n_words u32 | n_esc_words u32 | words | escape words)."""
         mp = (data["mask_pol"] or self.cfg.mask_policy).encode()
+        groups = int(data.get("groups", 1))
         head = MAGIC + struct.pack(
             "<BfHHHHBB", FORMAT_VERSION, data["quality"], data["batch"],
-            *data["z_shape"], int(data.get("lanes", self.lanes)), 1, len(mp),
+            *data["z_shape"], int(data.get("lanes", self.lanes)), groups, len(mp),
         )
-        words = words_np(data["stream"]).astype("<u2")
-        esc = words_np(data.get("esc", np.zeros(0, np.uint16))).astype("<u2")
-        body = struct.pack("<II", len(words), len(esc)) + words.tobytes() + esc.tobytes()
+        if groups > 1:
+            segments = list(zip(data["streams"], data["escs"]))
+        else:
+            segments = [(data["stream"], data.get("esc", np.zeros(0, np.uint16)))]
+        body = b""
+        for words, esc in segments:
+            words, esc = words_np(words).astype("<u2"), words_np(esc).astype("<u2")
+            body += struct.pack("<II", len(words), len(esc)) + words.tobytes() + esc.tobytes()
         return head + mp + body
 
     def deserialize(self, blob: bytes) -> dict:
@@ -102,22 +109,28 @@ class Codec:
         )
         if ver != FORMAT_VERSION:
             raise ValueError(f"container format v{ver} != this build's v{FORMAT_VERSION}")
-        if groups != 1:
-            raise ValueError(f"container has groups={groups}; the port decodes groups=1")
-        check_lanes(lanes)
+        check_lanes(lanes, check_groups(groups))
         mp = blob[19 : 19 + mlen].decode()
         off = 19 + mlen
-        n_words, n_esc = struct.unpack("<II", blob[off : off + 8])
-        off += 8
-        stream = np.frombuffer(blob[off : off + 2 * n_words], dtype="<u2")
-        off += 2 * n_words
-        esc = np.frombuffer(blob[off : off + 2 * n_esc], dtype="<u2")
-        if off + 2 * n_esc != len(blob):
-            raise ValueError(f"container is {len(blob)} bytes, its header says {off + 2 * n_esc}")
-        return {
-            "z_shape": (zh, zw), "batch": batch, "quality": quality, "mask_pol": mp,
-            "lanes": lanes, "stream": stream, "esc": esc,
-        }
+        streams, escs = [], []
+        for _ in range(groups):
+            if off + 8 > len(blob):
+                raise ValueError(f"container is {len(blob)} bytes, cut inside a segment header")
+            n_words, n_esc = struct.unpack("<II", blob[off : off + 8])
+            off += 8
+            streams.append(np.frombuffer(blob[off : off + 2 * n_words], dtype="<u2"))
+            off += 2 * n_words
+            escs.append(np.frombuffer(blob[off : off + 2 * n_esc], dtype="<u2"))
+            off += 2 * n_esc
+        if off != len(blob):
+            raise ValueError(f"container is {len(blob)} bytes, its header says {off}")
+        out = {"z_shape": (zh, zw), "batch": batch, "quality": quality, "mask_pol": mp,
+               "lanes": lanes}
+        if groups > 1:
+            out.update({"streams": streams, "escs": escs, "groups": groups})
+        else:
+            out.update({"stream": streams[0], "esc": escs[0]})
+        return out
 
 
 def _stream_capacity(batch: int, z_shape: tuple, cfg: ModelConfig, lanes: int) -> int:

@@ -1,7 +1,8 @@
 """Granular codec: compress / decompress through shared model fragments.
 
-Counterpart of `progressivecodec_tpu/models/codec_granular.py` for the
-stacked ChannelProgressiveWACNN with one stream (groups=1).
+Counterpart of `progressivecodec_tpu/models/codec_granular.py` for
+ChannelProgressiveWACNN (stacked and unrolled enhancement) and WACNN, on
+one stream or on G independent sub-streams (PCT1-G, `groups`).
 
 The decoder re-derives every CDF index and the enhancement mask from
 sigma, so sigma must have the same bits on the encode and the decode side.
@@ -16,8 +17,9 @@ Encode and decode must use the same batch shape.
 
 The rANS scans run as CUDA kernels on the card (`coder/rans_cuda.py`):
 one encode-scan launch per `compress`, one decode-scan launch per stage of
-`decompress` (z, each base slice, and the stacked enhancement stage when
-quality > 0).
+`decompress` (z, each base slice, then the stacked enhancement stage or
+one stage per unrolled enhancement slice when quality > 0); with groups > 1
+each stage is one launch of the grouped decode kernel.
 """
 
 from __future__ import annotations
@@ -26,42 +28,51 @@ import numpy as np
 import torch
 
 from progressivecodec_tpu_torch.coder import rans_device
-from progressivecodec_tpu_torch.coder.rans_device import DecoderState, _pad_to_grid
+from progressivecodec_tpu_torch.coder.rans_device import (
+    DecoderState,
+    GroupedDecoderState,
+    _pad_to_grid,
+)
 from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, check_lanes
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
+from progressivecodec_tpu_torch.models.wacnn import WACNN
 
 F32 = torch.float32
 I32 = torch.int32
 
 
 class GranularCodec(Codec):
-    """Codec with per-stage shared fragments for the stacked progressive model."""
+    """Codec with per-stage shared fragments for the port's model families."""
 
-    def __init__(self, model: ChannelProgressiveWACNN, lanes: int = DEFAULT_LANES,
-                 groups: int = 1, coder_mesh=None, lane_policy: str = "fixed",
-                 device=None):
-        """lanes: a multiple of 32 in [32, 1024] (one decode CTA of whole
-        warps).  lane_policy: "fixed" uses `lanes` for every stream; "auto"
-        scales the lane count with the coded-symbol estimate from container
-        metadata only, so the decoder reproduces it.  The model is moved to
-        `device` (default `cuda`)."""
-        if groups != 1 or coder_mesh is not None:
+    def __init__(self, model, lanes: int = DEFAULT_LANES, groups: int = 1, coder_mesh=None,
+                 lane_policy: str = "fixed", device=None):
+        """lanes: with one stream a multiple of 32 in [32, 1024] (one decode
+        CTA of whole warps); with groups > 1 (the PCT1-G wire format) a
+        multiple of groups with at most 1024 per group.  lane_policy:
+        "fixed" uses `lanes` for every stream; "auto" scales the lane count
+        with the coded-symbol estimate from container metadata only, so the
+        decoder reproduces it (rounded up to a multiple of groups).  The
+        model is moved to `device` (default `cuda`)."""
+        if coder_mesh is not None:
             raise NotImplementedError(
-                "PCT1-G grouped and mesh-sharded coding come with a later slice of the port"
+                "mesh-sharded coding (coder_mesh) comes with the parallel/ slice of the port"
             )
         if lane_policy not in ("fixed", "auto"):
             raise ValueError(f"lane_policy {lane_policy!r}")
-        if not isinstance(model, ChannelProgressiveWACNN):
-            raise NotImplementedError("the port's codec covers ChannelProgressiveWACNN only")
+        if not isinstance(model, (ChannelProgressiveWACNN, WACNN)):
+            raise NotImplementedError(
+                "the port's codec covers ChannelProgressiveWACNN and WACNN (models/registry.py)"
+            )
         device = resolve_device(device)
         set_deterministic()
-        super().__init__(model.to(device).eval(), lanes)
+        super().__init__(model.to(device).eval(), lanes, groups)
         self.lane_policy = lane_policy
         cfg = self.cfg
-        self._n_base = cfg.ns0
-        self._n_split = cfg.ns1
+        self._progressive = isinstance(model, ChannelProgressiveWACNN)
+        self._n_base = cfg.ns0 if self._progressive else cfg.M // cfg.dim_chunk
+        self._n_split = cfg.ns1 if self._progressive else cfg.M // cfg.dim_chunk
         self._scale_table = torch.as_tensor(
             cfg.scale_table.values().astype(np.float32), device=device
         )
@@ -76,7 +87,9 @@ class GranularCodec(Codec):
         hy, wy = hz * 4, wz * 4
         n_z = batch * hz * wz * cfg.N
         n_base = batch * hy * wy * cfg.division_channel
-        n_prog = int(batch * hy * wy * cfg.delta_dim * min(quality, 10.0) / 10.0) if quality > 0 else 0
+        n_prog = 0
+        if self._progressive and quality > 0:
+            n_prog = int(batch * hy * wy * cfg.delta_dim * min(quality, 10.0) / 10.0)
         return n_z + n_base + n_prog
 
     def _lanes_for_stream(self, batch: int, z_shape, quality: float) -> int:
@@ -84,7 +97,8 @@ class GranularCodec(Codec):
             return self.lanes
         est = self._estimate_symbols(batch, z_shape, quality)
         lanes = 1 << max(int(est // 4096).bit_length() - 1, 0)
-        return max(64, min(lanes, self.lanes))
+        lanes = max(64, min(lanes, self.lanes))
+        return -(-lanes // self.groups) * self.groups
 
     # ---------- helpers ----------
 
@@ -103,7 +117,16 @@ class GranularCodec(Codec):
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=F32, device=self.device)
 
-    # ---------- shared base pipeline ----------
+    def _stacked(self) -> bool:
+        return self._progressive and self.model.stacked
+
+    def _map_slice(self, cust_map, i: int):
+        if cust_map is None:
+            return None
+        dc = self.cfg.dim_chunk
+        return cust_map[..., i * dc : (i + 1) * dc]
+
+    # ---------- shared pipelines ----------
 
     def _base_loop(self, lm, ls, vals_fn):
         """Run the ChARM base slices; vals_fn(i, mu, idx) supplies flat integer
@@ -132,6 +155,24 @@ class GranularCodec(Codec):
                 y_hat_base.append(m.codec_base_recon(i, ms, mu_list[i], vals))
         return y_hat_base, mu_list, std_list
 
+    def _prog_loop(self, quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
+                   vals_fn):
+        """Run the unrolled enhancement slices; vals_fn(i, mu, mask, keep, idx)
+        supplies flat integer values.  Returns the reconstructed slices."""
+        cfg, m = self.cfg, self.model
+        prog_slices, mu_total, std_total = [], [], []
+        for i in range(cfg.num_prog_slices):
+            mu, scale, mut, mask, keep, idx, ms = m.codec_prog_params(
+                i, quality, mask_pol, lm, ls, tuple(y_hat_base), tuple(mu_total),
+                tuple(std_total), tuple(prog_slices), mu_list[i], std_list[i], None,
+                self._scale_table, self._map_slice(cust_map, i),
+            )
+            std_total.append(scale if cfg.support_std else mut)
+            mu_total.append(mut)
+            vals = vals_fn(i, mu, mask, keep, idx)
+            prog_slices.append(m.codec_prog_recon(i, ms, mu, vals, keep, y_hat_base[i]))
+        return prog_slices
+
     # ---------- public API ----------
 
     @torch.no_grad()
@@ -155,6 +196,7 @@ class GranularCodec(Codec):
         """Encode from a precomputed latent y (B, h, w, M)."""
         cfg, m = self.cfg, self.model
         mask_pol = mask_pol or cfg.mask_policy
+        quality = float(quality)
         self.update()
         y = self._as_input(y)
         row0 = self.gauss_row0
@@ -175,46 +217,75 @@ class GranularCodec(Codec):
             stages.append((sym, (idx + row0).reshape(-1), self._ones(sym.numel())))
             return sym
 
-        y_hat_base, _, _ = self._base_loop(lm, ls, enc_vals)
+        y_hat_base, mu_list, std_list = self._base_loop(lm, ls, enc_vals)
 
         y_hat_prog = None
-        if quality > 0:
-            mu_st, _, mask, keep, idx, ms, base_stack = m.codec_prog_stacked(
-                float(quality), mask_pol, lm, ls, tuple(y_hat_base), self._scale_table,
-                cust_map,
-            )
-            b, h, w, _ = y.shape
-            dc = mu_st.shape[-1]
-            y5 = y.reshape(b, h, w, -1, dc)
-            prog = y5[..., cfg.ns0 : cfg.ns0 + cfg.num_prog_slices, :]
-            if cfg.delta_encode:
-                prog = prog - y5[..., : cfg.num_prog_slices, :]
-            y_prog = prog.movedim(3, 0)
-            sym = torch.round((y_prog - mu_st) * mask).to(I32)
-            stages.append((sym.reshape(-1), (idx + row0).reshape(-1), keep.reshape(-1)))
-            if simulate:
-                y_hat_prog = self._unstack(
-                    m.codec_prog_recon_stacked(ms, mu_st, sym, keep, base_stack)
+        if quality > 0 and self._progressive:
+            if self._stacked():
+                mu_st, _, mask, keep, idx, ms, base_stack = m.codec_prog_stacked(
+                    quality, mask_pol, lm, ls, tuple(y_hat_base), self._scale_table, cust_map,
                 )
+                b, h, w, _ = y.shape
+                dc = mu_st.shape[-1]
+                y5 = y.reshape(b, h, w, -1, dc)
+                prog = y5[..., cfg.ns0 : cfg.ns0 + cfg.num_prog_slices, :]
+                if cfg.delta_encode:
+                    prog = prog - y5[..., : cfg.num_prog_slices, :]
+                sym = torch.round((prog.movedim(3, 0) - mu_st) * mask).to(I32)
+                stages.append((sym.reshape(-1), (idx + row0).reshape(-1), keep.reshape(-1)))
+                if simulate:
+                    y_hat_prog = self._unstack(
+                        m.codec_prog_recon_stacked(ms, mu_st, sym, keep, base_stack)
+                    )
+            else:
+                base0 = cfg.ns0 * cfg.dim_chunk
+
+                def prog_vals(i, mu, mask, keep, idx):
+                    # the enhancement slice, less its unquantised base slice
+                    # under delta_encode
+                    lo, dc = i * dc_slice, mu.shape[-1]
+                    ys = y[..., base0 + lo : base0 + lo + dc]
+                    if cfg.delta_encode:
+                        ys = ys - y[..., lo : lo + dc]
+                    sym = torch.round((ys - mu) * mask).to(I32).reshape(-1)
+                    stages.append((sym, (idx + row0).reshape(-1), keep.reshape(-1)))
+                    return sym
+
+                prog_slices = self._prog_loop(quality, mask_pol, lm, ls, y_hat_base, mu_list,
+                                              std_list, cust_map, prog_vals)
+                y_hat_prog = torch.cat(prog_slices, dim=-1)
 
         hz, wz = z.shape[1], z.shape[2]
-        lanes = self._lanes_for_stream(int(x_shape[0]), (hz, wz), float(quality))
-        stream, n_words, esc, n_esc = rans_device.encode_stages(
-            stages, self.device_tables, lanes
-        )
-        n_words, n_esc = int(n_words), int(n_esc)
+        lanes = self._lanes_for_stream(int(x_shape[0]), (hz, wz), quality)
         result = {
-            "stream": stream[:n_words],
-            "esc": esc[: 2 * n_esc],
-            "num_bytes": 2 * (n_words + 2 * n_esc),
             "z_shape": (hz, wz),
             "batch": int(x_shape[0]),
-            "quality": float(quality),
+            "quality": quality,
             "mask_pol": mask_pol,
             "lanes": lanes,
         }
+        t = self.device_tables
+        if self.groups > 1:
+            streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(
+                stages, t, lanes, self.groups
+            )
+            nw, ne = n_words.tolist(), n_escs.tolist()
+            result.update({
+                "groups": self.groups,
+                "streams": [streams[g, : nw[g]] for g in range(self.groups)],
+                "escs": [escs[g, : 2 * ne[g]] for g in range(self.groups)],
+                "num_bytes": 2 * (sum(nw) + 2 * sum(ne)),
+            })
+        else:
+            stream, n_words, esc, n_esc = rans_device.encode_stages(stages, t, lanes)
+            n_words, n_esc = int(n_words), int(n_esc)
+            result.update({
+                "stream": stream[:n_words],
+                "esc": esc[: 2 * n_esc],
+                "num_bytes": 2 * (n_words + 2 * n_esc),
+            })
         if simulate:
-            if quality > 0:
+            if y_hat_prog is not None:
                 result["x_hat"] = m.codec_synth(1, y_hat_prog)
                 result["y_hat"] = y_hat_prog
             else:
@@ -226,7 +297,7 @@ class GranularCodec(Codec):
     @torch.no_grad()
     def decompress(self, data: dict, cust_map=None) -> dict:
         out = self.decompress_to_latent(data, cust_map=cust_map)
-        which = 0 if float(data["quality"]) == 0 else 1
+        which = 0 if float(data["quality"]) == 0 or not self._progressive else 1
         x_hat = self.model.codec_synth(which, out["y_hat"])
         return {"x_hat": x_hat, "stream_ok": out["stream_ok"], "y_hat": out["y_hat"]}
 
@@ -236,44 +307,82 @@ class GranularCodec(Codec):
             return x.to(device=self.device, dtype=torch.int16)
         return torch.from_numpy(np.asarray(x, dtype=np.uint16).view(np.int16).copy()).to(self.device)
 
-    @torch.no_grad()
-    def decompress_to_latent(self, data: dict, cust_map=None) -> dict:
-        """Entropy decode + slice reconstruction, stopping before g_s."""
-        cfg, m = self.cfg, self.model
-        self.update()
-        if int(data.get("groups", 1)) != 1:
-            raise ValueError(f"container has groups={data['groups']}; the port decodes groups=1")
-        quality = float(data["quality"])
-        mask_pol = data["mask_pol"] or cfg.mask_policy
-        batch = int(data["batch"])
-        hz, wz = data["z_shape"]
-        lanes = check_lanes(data.get("lanes", self.lanes))
+    def _stage_decoder(self, data: dict, lanes: int, cap: int):
+        """dec_stage(indexes, keep, row_off) -> values, over the container's
+        one stream or G sub-streams, and the decoder state it advances."""
         t = self.device_tables
         row0 = self.gauss_row0
-
-        stream = self._words(data["stream"])
-        if stream.numel() > _stream_capacity(batch, (hz, wz), cfg, lanes):
-            raise ValueError("stream longer than the container's capacity")
-        esc = torch.cat([self._words(data.get("esc", np.zeros(0, np.uint16))),
-                         torch.zeros(2, dtype=torch.int16, device=self.device)])
-        dec = [rans_device.decoder_init(stream, lanes)]
-
         n_rows = t.offset.shape[0]
+        empty = np.zeros(0, np.uint16)
+        g = self.groups
+        if g == 1:
+            stream = self._words(data["stream"])
+            if stream.numel() > cap:
+                raise ValueError("stream longer than the container's capacity")
+            esc = torch.cat([self._words(data.get("esc", empty)),
+                             torch.zeros(2, dtype=torch.int16, device=self.device)])
+            dec = [rans_device.decoder_init(stream, lanes)]
+        else:
+            # group g's capacity: its share of the payload and its own head
+            kt = lanes // g
+            cap_g = (cap - 2 * lanes) // g + 2 * kt
+            # rows padded to 8 words (the kernel's 16-byte copies); the
+            # zeros read as words past the end
+            streams = torch.zeros((g, -(-cap_g // 8) * 8), dtype=torch.int16, device=self.device)
+            escs = torch.zeros((g, 2 * cap_g + 2), dtype=torch.int16, device=self.device)
+            if len(data["streams"]) != g or len(data["escs"]) != g:
+                raise ValueError(f"container holds {len(data['streams'])} streams for groups={g}")
+            for i, (w, e) in enumerate(zip(data["streams"], data["escs"])):
+                w, e = self._words(w), self._words(e)
+                if w.numel() > cap_g or e.numel() > 2 * cap_g:
+                    raise ValueError(f"group {i}'s stream is longer than its capacity")
+                streams[i, : w.numel()] = w
+                escs[i, : e.numel()] = e
+            dec = [rans_device.grouped_decoder_init(streams, lanes, g)]
 
         def dec_stage(indexes, keep, row_off):
             # z codes on the bottleneck rows [0, row0), y on the Gaussian rows
             rows = (0, row0) if row_off == 0 else (row0, n_rows)
             idx_flat = (indexes + row_off).reshape(-1).to(I32)
             kp_flat = keep.reshape(-1)
-            states, offset, cums = rans_device.decode_stage_scan(
-                dec[0], stream, _pad_to_grid(idx_flat, lanes),
-                _pad_to_grid(kp_flat.to(torch.uint8), lanes), t, lanes, rows,
-            )
-            esc_offset, vals = rans_device.decode_stage_values(
-                dec[0].esc_offset, cums, esc, idx_flat, kp_flat, t, lanes
-            )
-            dec[0] = DecoderState(states, offset, esc_offset)
+            ig = _pad_to_grid(idx_flat, lanes)
+            kg = _pad_to_grid(kp_flat.to(torch.uint8), lanes)
+            d = dec[0]
+            if g == 1:
+                states, offset, cums = rans_device.decode_stage_scan(d, stream, ig, kg, t, lanes, rows)
+                esc_offset, vals = rans_device.decode_stage_values(
+                    d.esc_offset, cums, esc, idx_flat, kp_flat, t, lanes)
+                dec[0] = DecoderState(states, offset, esc_offset)
+            else:
+                states, offsets, cums = rans_device.decode_stage_grouped_scan(
+                    d, streams, ig, kg, t, lanes, rows)
+                esc_offsets, vals = rans_device.decode_stage_grouped_values(
+                    d.esc_offsets, cums, escs, idx_flat, kp_flat, t, lanes, g)
+                dec[0] = GroupedDecoderState(states, offsets, esc_offsets)
             return vals
+
+        return dec_stage, dec
+
+    @torch.no_grad()
+    def decompress_to_latent(self, data: dict, cust_map=None) -> dict:
+        """Entropy decode + slice reconstruction, stopping before g_s."""
+        cfg, m = self.cfg, self.model
+        self.update()
+        data_groups = int(data.get("groups", 1))
+        if data_groups != self.groups:
+            raise ValueError(
+                f"container has groups={data_groups} but this codec was built with "
+                f"groups={self.groups}"
+            )
+        quality = float(data["quality"])
+        mask_pol = data["mask_pol"] or cfg.mask_policy
+        batch = int(data["batch"])
+        hz, wz = data["z_shape"]
+        lanes = check_lanes(data.get("lanes", self.lanes), self.groups)
+        row0 = self.gauss_row0
+        dec_stage, dec = self._stage_decoder(
+            data, lanes, _stream_capacity(batch, (hz, wz), cfg, lanes)
+        )
 
         n = cfg.N
         z_idx = torch.arange(n, dtype=I32, device=self.device).expand(batch, hz, wz, n)
@@ -281,21 +390,25 @@ class GranularCodec(Codec):
         z_hat = z_vals.reshape(batch, hz, wz, n).to(F32) + self._medians()
         lm, ls = m.codec_hyper_dec(z_hat)
 
-        y_hat_base, _, _ = self._base_loop(
+        y_hat_base, mu_list, std_list = self._base_loop(
             lm, ls, lambda i, mu, idx: dec_stage(idx, self._ones(idx.numel()), row0)
         )
-        if quality == 0:
+        if quality == 0 or not self._progressive:
             y_hat = torch.cat(y_hat_base, dim=-1)
-        else:
+        elif self._stacked():
             mu_st, _, _, keep, idx, ms, base_stack = m.codec_prog_stacked(
                 quality, mask_pol, lm, ls, tuple(y_hat_base), self._scale_table, cust_map
             )
             vals = dec_stage(idx, keep, row0)
             y_hat = self._unstack(m.codec_prog_recon_stacked(ms, mu_st, vals, keep, base_stack))
+        else:
+            y_hat = torch.cat(self._prog_loop(
+                quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
+                lambda i, mu, mask, keep, idx: dec_stage(idx, keep, row0),
+            ), dim=-1)
         return {"y_hat": y_hat, "stream_ok": bool(rans_device.stream_ok(dec[0]))}
 
 
-def make_codec(model: ChannelProgressiveWACNN, lanes: int = DEFAULT_LANES,
-               device=None) -> GranularCodec:
-    """GranularCodec for the port's model family."""
-    return GranularCodec(model, lanes, device=device)
+def make_codec(model, lanes: int = DEFAULT_LANES, device=None, groups: int = 1) -> GranularCodec:
+    """GranularCodec for every model family the port serves (models/registry.py)."""
+    return GranularCodec(model, lanes, groups=groups, device=device)

@@ -1,19 +1,23 @@
-"""ChannelProgressiveWACNN, the channel-progressive codec, for the stacked
-enhancement configurations.
+"""ChannelProgressiveWACNN, the channel-progressive codec.
 
-Counterpart of `progressivecodec_tpu/models/progressive.py` for
-configurations where `_use_stacked_prog()` holds (the flagship
-`ModelConfig()` among them).  The M-channel latent is split at
-`division_dimension`: slices 0..ns0-1 form the base layer, coded with the
-ChARM recursion; the enhancement slices are mutually independent and are
-masked element-wise by the rank of their predicted sigma.
+Counterpart of `progressivecodec_tpu/models/progressive.py`.  The M-channel
+latent is split at `division_dimension`: slices 0..ns0-1 form the base
+layer, coded with the ChARM recursion; the enhancement slices are masked
+element-wise by the rank of their predicted sigma (or by a learnable conv
+importance map).
+
+Two enhancement paths, as in JAX:
+  * stacked (`uses_stacked_prog`, the flagship `ModelConfig()` among
+    them): the enhancement slices are mutually independent and one bank
+    codes them together (a plain loop over its slices where JAX vmaps);
+  * unrolled: slice by slice, each conditioned on its co-located base
+    slice and on up to `support_progressive_slices` earlier enhancement
+    slices (or their means and scales, `all_scalable`), joined into the
+    base by a residual or a joiner net, masked by sigma or a learnable map.
 
 Internals are NCHW `nn.Module`s.  The public methods (`analyze` and the
 `codec_*` fragments the granular codec calls) take and return channel-last
-tensors, like the JAX package, and every fragment converts its inputs to
-contiguous NCHW first, so the encode and the decode side run the same
-kernels on the same layouts.  The enhancement bank is a plain loop over its
-slices where the JAX package vmaps it.
+tensors, like the JAX package (`transforms.ChARMFragments`).
 """
 
 from __future__ import annotations
@@ -25,22 +29,20 @@ from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.device import resolve_device
 from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from progressivecodec_tpu_torch.entropy.gaussian import build_indexes
-from progressivecodec_tpu_torch.layers.masking import stacked_channel_mask
+from progressivecodec_tpu_torch.layers.blocks import Conv
+from progressivecodec_tpu_torch.layers.masking import channel_mask, stacked_channel_mask
+from progressivecodec_tpu_torch.layers.masking_learnable import LearnableMaskStack
+from progressivecodec_tpu_torch.layers.unet import refine_net
 from progressivecodec_tpu_torch.models.transforms import (
     AnalysisTransform,
+    ChARMFragments,
     HyperAnalysis,
     HyperSynthesis,
     SliceTransforms,
     SynthesisTransform,
+    nchw,
+    nhwc,
 )
-
-
-def nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).contiguous()
-
-
-def nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def uses_stacked_prog(cfg: ModelConfig) -> bool:
@@ -55,26 +57,43 @@ def uses_stacked_prog(cfg: ModelConfig) -> bool:
     )
 
 
-class ChannelProgressiveWACNN(nn.Module):
+class JoinerStack(nn.Sequential):
+    """conv3(64)-GELU-conv3(64)-GELU-conv3(out) merge of (enhancement, base)."""
+
+    def __init__(self, cin: int, out: int, device=None):
+        super().__init__(
+            Conv(cin, 64, 3, 1, device=device), nn.GELU(),
+            Conv(64, 64, 3, 1, device=device), nn.GELU(),
+            Conv(64, out, 3, 1, device=device),
+        )
+
+
+class LearnableMasking(nn.Module):
+    """Holder named like the reference's `masking` module (`masking.mask_conv.i`)."""
+
+    def __init__(self, n: int, cin: int, out: int, device=None):
+        super().__init__()
+        self.mask_conv = nn.ModuleList([LearnableMaskStack(cin, out, device=device) for _ in range(n)])
+
+
+class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
     """Module tree named like the reference (`g_a.0.…`, `cc_mean_transforms.3.…`),
     so a reference-named state dict loads with `strict=True`."""
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):
         super().__init__()
-        if not uses_stacked_prog(cfg) or cfg.name == "rate":
+        if cfg.name == "rate":
             raise NotImplementedError(
-                "only the stacked enhancement path is ported; the unrolled-prog "
-                "branch (support_progressive_slices, all_scalable, joiners, "
-                "learnable masks, REM) comes with a later slice of the port"
+                "REM (name='rate') comes with the next slice of the port (models/rem.py)"
             )
-        if cfg.u_net_post:
-            raise NotImplementedError("u_net_post refinement comes with a later slice")
-        if cfg.ns0 != cfg.num_prog_slices:
+        self.stacked = uses_stacked_prog(cfg)
+        if self.stacked and cfg.ns0 != cfg.num_prog_slices:
             raise NotImplementedError("the stacked bank needs ns0 == num_prog_slices")
         device = resolve_device(device)
         self.cfg = cfg
         n, dc = cfg.N, cfg.dim_chunk
         d0, d1 = cfg.division_dimension
+        self._base_width = d0
         if cfg.multiple_encoder:
             self.g_a = nn.ModuleList([AnalysisTransform(n, d0, device=device) for _ in range(2)])
             y_ch = 2 * d0
@@ -89,19 +108,41 @@ class ChannelProgressiveWACNN(nn.Module):
         if cfg.multiple_hyperprior:
             self.h_mean_s = nn.ModuleList([HyperSynthesis(n, d0, device=device) for _ in range(2)])
             self.h_scale_s = nn.ModuleList([HyperSynthesis(n, d0, device=device) for _ in range(2)])
+            enh = d0  # channels of the hyper output past d0
         else:
             self.h_mean_s = HyperSynthesis(n, d1, device=device)
             self.h_scale_s = HyperSynthesis(n, d1, device=device)
+            enh = d1 - d0
         base_in = [d0 + dc * min(i, cfg.max_support_slices) for i in range(cfg.ns0)]
         self.cc_mean_transforms = SliceTransforms(base_in, dc, device=device)
         self.cc_scale_transforms = SliceTransforms(base_in, dc, device=device)
         self.lrp_transforms = SliceTransforms([c + dc for c in base_in], dc, device=device)
-        s = cfg.num_prog_slices
-        prog_in = (d1 - d0) + dc
-        self.cc_mean_transforms_prog = SliceTransforms([prog_in] * s, dc, device=device)
-        self.cc_scale_transforms_prog = SliceTransforms([prog_in] * s, dc, device=device)
-        self.lrp_transforms_prog = SliceTransforms([prog_in + dc] * s, dc, device=device)
+        # enhancement slice i sees the hyper channels past d0, its base slice
+        # and `_n_support(i)` earlier enhancement entries; the unrolled lrp
+        # bank has ns0 entries, as the reference's
+        prog_in = [enh + dc * (1 + self._n_support(i)) for i in range(cfg.num_prog_slices)]
+        n_lrp = cfg.num_prog_slices if self.stacked else cfg.ns0
+        self.cc_mean_transforms_prog = SliceTransforms(prog_in, dc, device=device)
+        self.cc_scale_transforms_prog = SliceTransforms(prog_in, dc, device=device)
+        self.lrp_transforms_prog = SliceTransforms(
+            [enh + dc * (2 + self._n_support(i)) for i in range(n_lrp)], dc, device=device
+        )
         self.entropy_bottleneck = EntropyBottleneck(n, device=device)
+        if "learnable" in cfg.mask_policy:
+            self.masking = LearnableMasking(
+                cfg.num_prog_slices, 2 * dc if cfg.double_dim else dc, dc, device=device
+            )
+        if cfg.joiner_policy in ("cond", "channel_cond", "channel_res"):
+            self.joiner = nn.ModuleList([JoinerStack(2 * dc, dc, device=device) for _ in range(cfg.ns0)])
+        if cfg.u_net_post == 1:
+            self.refine = refine_net(device)
+        elif cfg.u_net_post == 2:
+            self.refine = nn.ModuleList([refine_net(device) for _ in range(2)])
+
+    def _n_support(self, i: int) -> int:
+        """Earlier enhancement entries in slice i's support."""
+        sps = self.cfg.support_progressive_slices
+        return 0 if i == 0 or sps == 0 else min(sps, i)
 
     # ------------------------------------------------------------------
     # pieces (NCHW inside)
@@ -127,19 +168,24 @@ class ChannelProgressiveWACNN(nn.Module):
     def _synth_net(self, which: int):
         return self.g_s[which] if self.cfg.multiple_decoder else self.g_s
 
-    def _base_slice(self, i: int, lm, ls, support: list):
-        """NCHW base-slice parameter prediction -> (mu, scale, mean_support)."""
-        d0 = self.cfg.division_channel
-        support = support[: min(i, self.cfg.max_support_slices)]
-        mean_support = torch.cat([lm[:, :d0]] + support, dim=1)
-        scale_support = torch.cat([ls[:, :d0]] + support, dim=1)
-        mu = self.cc_mean_transforms[i](mean_support)
-        scale = self.cc_scale_transforms[i](scale_support)
-        return mu, scale, mean_support
+    def _apply_refine(self, x_hat, which: int):
+        u = self.cfg.u_net_post
+        if u == 1:
+            return self.refine(x_hat)
+        if u == 2:
+            return self.refine[min(which, 1)](x_hat)
+        return x_hat
 
-    def _base_lrp(self, i: int, mean_support, y_hat_slice):
-        lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
-        return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
+    def _merge(self, y_enh, y_base, i: int):
+        """Join an enhancement slice into its base slice (NCHW)."""
+        if self.cfg.joiner_policy == "res":
+            return y_enh + y_base
+        return self.joiner[i](torch.cat([y_enh, y_base], dim=1))
+
+    def _support(self, y_hat_base: list, i: int, entries: list) -> list:
+        """[co-located base slice] + the slice's earlier enhancement entries."""
+        k = self._n_support(i)
+        return [y_hat_base[i]] + entries[i - k : i] if k else [y_hat_base[i]]
 
     def _prog_params_stacked(self, lm, ls, y_hat_base: list):
         """NCHW -> (mu, scale, mean_support, base_stack) stacks, each (S, B, C, h, w)."""
@@ -154,36 +200,44 @@ class ChannelProgressiveWACNN(nn.Module):
             ms.append(mean_support)
         return torch.stack(mu), torch.stack(scale), torch.stack(ms), torch.stack(y_hat_base)
 
+    def _prog_slice(self, i, lm, ls, y_hat_base, mu_total, std_total, prog_slices):
+        """NCHW unrolled enhancement-slice parameters -> (mu, scale, mut, mean_support)."""
+        cfg = self.cfg
+        d0 = cfg.division_channel
+        sup_mean = self._support(y_hat_base, i, mu_total if cfg.all_scalable else prog_slices)
+        sup_std = self._support(y_hat_base, i, std_total if cfg.all_scalable else prog_slices)
+        mean_support = torch.cat([lm[:, d0:]] + sup_mean, dim=1)
+        scale_support = torch.cat([ls[:, d0:]] + sup_std, dim=1)
+        mu = self.cc_mean_transforms_prog[i](mean_support)
+        scale = self.cc_scale_transforms_prog[i](scale_support)
+        mut = mu + y_hat_base[i] if cfg.total_mu_rep else mu
+        return mu, scale, mut, mean_support
+
+    def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol):
+        """Hook for REM-style (mu, scale) refinement of enhancement slices;
+        the identity here."""
+        return mu, scale
+
+    def _mask_for(self, scale, pr, mask_pol, i, y_base_slice, cust_map=None):
+        """Channel-last mask of enhancement slice i: the learnable levels
+        (pr 0 none, 2 all, else the rounded conv importance map) or a sigma
+        policy of `layers/masking.py`."""
+        cfg = self.cfg
+        if mask_pol is not None and "learnable" in mask_pol:
+            if pr == 0:
+                return torch.zeros_like(scale)
+            if pr == 2:
+                return torch.ones_like(scale)
+            inp = torch.cat([scale, y_base_slice], dim=-1) if cfg.double_dim else scale
+            return torch.round(nhwc(self.masking.mask_conv[i](nchw(inp))))
+        return channel_mask(
+            scale, pr=pr, mask_pol=mask_pol, slice_index=i, dim_chunk=cfg.dim_chunk,
+            division_channel=cfg.division_channel, cust_map=cust_map,
+        )
+
     # ------------------------------------------------------------------
-    # granular-codec fragments: channel-last in and out, as in JAX.  Both
-    # codec sides call the same fragments, so every sigma / mask / index
-    # computation runs the same kernels on both.
+    # enhancement and synthesis fragments: channel-last in and out
     # ------------------------------------------------------------------
-
-    def codec_hyper_enc(self, y):
-        return nhwc(self.h_a(nchw(y)))
-
-    def codec_hyper_dec(self, z_hat):
-        lm, ls = self._hyper_params(nchw(z_hat))
-        return nhwc(lm), nhwc(ls)
-
-    def codec_base_params(self, i: int, lm, ls, support, scale_table):
-        mu, scale, ms = self._base_slice(i, nchw(lm), nchw(ls), [nchw(s) for s in support])
-        mu, scale, ms = nhwc(mu), nhwc(scale), nhwc(ms)
-        return mu, scale, build_indexes(scale, scale_table, 0.11), ms
-
-    def codec_base_recon(self, i: int, ms, mu, vals):
-        y0 = vals.reshape(mu.shape).to(torch.float32) + mu
-        return y0 + nhwc(self._base_lrp(i, nchw(ms), nchw(y0)))
-
-    def codec_base_step(self, j: int, include_prev: bool, lm, ls, support,
-                        scale_table, ms_prev, mu_prev, vals_prev):
-        """Recon of base slice j-1 + params of slice j; include_prev is True
-        iff slice j-1 lies inside slice j's support window."""
-        y_prev = self.codec_base_recon(j - 1, ms_prev, mu_prev, vals_prev)
-        sup = list(support) + ([y_prev] if include_prev else [])
-        mu, scale, idx, ms = self.codec_base_params(j, lm, ls, sup, scale_table)
-        return y_prev, mu, scale, idx, ms
 
     def codec_prog_stacked(self, quality: float, mask_pol, lm, ls, y_hat_base,
                            scale_table, cust_map=None):
@@ -219,8 +273,42 @@ class ChannelProgressiveWACNN(nn.Module):
             y0 = y0 + base_stack
         return y0
 
+    def codec_prog_params(self, i: int, quality: float, mask_pol, lm, ls, y_hat_base,
+                          mu_total, std_total, prog_slices, mu_b_i, std_b_i, checkpoint_slice,
+                          scale_table, cust_map_slice=None):
+        """Unrolled enhancement slice i: everything whose output feeds an
+        index or keep decision -> (mu, scale, mut, mask, keep, idx,
+        mean_support), channel-last.  `checkpoint_slice` anchors the
+        refinement hook in place of the base slice when given."""
+        mu, scale, mut, ms = self._prog_slice(
+            i, nchw(lm), nchw(ls), *([nchw(t) for t in ts] for ts in
+                                     (y_hat_base, mu_total, std_total, prog_slices))
+        )
+        mu, scale, mut, ms = nhwc(mu), nhwc(scale), nhwc(mut), nhwc(ms)
+        anchor = checkpoint_slice if checkpoint_slice is not None else y_hat_base[i]
+        mu, scale = self._refine_prog_params(i, quality, mu, scale, mu_b_i, std_b_i, anchor, mask_pol)
+        mask = self._mask_for(scale, quality, mask_pol, i, y_hat_base[i], cust_map_slice)
+        keep = torch.round(mask) > 0.5
+        idx = build_indexes(scale, scale_table, 0.11)
+        return mu, scale, mut, mask, keep, idx, ms
+
+    def codec_prog_recon(self, i: int, ms, mu, vals, keep, y_b_i):
+        """Reconstruction of unrolled enhancement slice i, merged into its base."""
+        cfg = self.cfg
+        zero = torch.zeros((), dtype=torch.float32, device=mu.device)
+        y0 = nchw(torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu)
+        base = nchw(y_b_i)
+        if cfg.residual_before_lrp:
+            y0 = self._merge(y0, base, i)
+        lrp_in = torch.cat([nchw(ms), y0], dim=1)
+        y0 = y0 + 0.5 * torch.tanh(self.lrp_transforms_prog[i](lrp_in))
+        if not cfg.residual_before_lrp:
+            y0 = self._merge(y0, base, i)
+        return nhwc(y0)
+
     def codec_synth(self, which: int, y_hat):
-        return nhwc(torch.clamp(self._synth_net(which)(nchw(y_hat)), 0.0, 1.0))
+        x_hat = self._apply_refine(self._synth_net(which)(nchw(y_hat)), which)
+        return nhwc(torch.clamp(x_hat, 0.0, 1.0))
 
     def _map_stack(self, cust_map):
         if cust_map is None:

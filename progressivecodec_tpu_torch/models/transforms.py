@@ -1,4 +1,5 @@
-"""Analysis / synthesis / hyper transform stacks, NCHW.
+"""Analysis / synthesis / hyper transform stacks, NCHW, and the ChARM
+base-slice fragments the two model families share.
 
 Counterpart of `progressivecodec_tpu/models/transforms.py`.  Each stack is
 an `nn.Sequential` whose indices match the reference's module tree
@@ -7,7 +8,10 @@ an `nn.Sequential` whose indices match the reference's module tree
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+
+from progressivecodec_tpu_torch.entropy.gaussian import build_indexes
 
 from progressivecodec_tpu_torch.layers.blocks import (
     GDN,
@@ -85,3 +89,61 @@ class SliceTransforms(nn.ModuleList):
 
     def __init__(self, cins, out: int = 32, device=None):
         super().__init__([ConvStack5(c, out, device=device) for c in cins])
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class ChARMFragments:
+    """The hyperprior and ChARM base-slice codec fragments, channel-last in
+    and out as in JAX, NCHW inside; every fragment converts its inputs to
+    contiguous NCHW first, so the encode and the decode side run the same
+    kernels on the same layouts.
+
+    The model provides h_a, `_hyper_params`, the banks cc_mean_transforms,
+    cc_scale_transforms and lrp_transforms, and `_base_width`: the hyper
+    channels a base slice sees (d0 for the progressive model, M for WACNN)."""
+
+    def _base_slice(self, i: int, lm, ls, support: list):
+        """NCHW base-slice parameter prediction -> (mu, scale, mean_support)."""
+        d0 = self._base_width
+        support = support[: min(i, self.cfg.max_support_slices)]
+        mean_support = torch.cat([lm[:, :d0]] + support, dim=1)
+        scale_support = torch.cat([ls[:, :d0]] + support, dim=1)
+        mu = self.cc_mean_transforms[i](mean_support)
+        scale = self.cc_scale_transforms[i](scale_support)
+        return mu, scale, mean_support
+
+    def _base_lrp(self, i: int, mean_support, y_hat_slice):
+        lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
+        return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
+
+    def codec_hyper_enc(self, y):
+        return nhwc(self.h_a(nchw(y)))
+
+    def codec_hyper_dec(self, z_hat):
+        lm, ls = self._hyper_params(nchw(z_hat))
+        return nhwc(lm), nhwc(ls)
+
+    def codec_base_params(self, i: int, lm, ls, support, scale_table):
+        mu, scale, ms = self._base_slice(i, nchw(lm), nchw(ls), [nchw(s) for s in support])
+        mu, scale, ms = nhwc(mu), nhwc(scale), nhwc(ms)
+        return mu, scale, build_indexes(scale, scale_table, 0.11), ms
+
+    def codec_base_recon(self, i: int, ms, mu, vals):
+        y0 = vals.reshape(mu.shape).to(torch.float32) + mu
+        return y0 + nhwc(self._base_lrp(i, nchw(ms), nchw(y0)))
+
+    def codec_base_step(self, j: int, include_prev: bool, lm, ls, support,
+                        scale_table, ms_prev, mu_prev, vals_prev):
+        """Recon of base slice j-1 + params of slice j; include_prev is True
+        iff slice j-1 lies inside slice j's support window."""
+        y_prev = self.codec_base_recon(j - 1, ms_prev, mu_prev, vals_prev)
+        sup = list(support) + ([y_prev] if include_prev else [])
+        mu, scale, idx, ms = self.codec_base_params(j, lm, ls, sup, scale_table)
+        return y_prev, mu, scale, idx, ms

@@ -1,0 +1,58 @@
+"""WACNN, the single-rate window-attention codec (registry name "cnn").
+
+Counterpart of `progressivecodec_tpu/models/wacnn.py`: the same transforms
+and ChARM slice recursion as the progressive model's base layer, over all
+M // dim_chunk slices of an M-channel latent, with one synthesis.  Module
+names follow the reference's tree, so its state dict loads with
+`strict=True`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from progressivecodec_tpu_torch.config import ModelConfig
+from progressivecodec_tpu_torch.device import resolve_device
+from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck
+from progressivecodec_tpu_torch.models.transforms import (
+    AnalysisTransform,
+    ChARMFragments,
+    HyperAnalysis,
+    HyperSynthesis,
+    SliceTransforms,
+    SynthesisTransform,
+    nchw,
+    nhwc,
+)
+
+
+class WACNN(ChARMFragments, nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        n, m, dc = cfg.N, cfg.M, cfg.dim_chunk
+        self.num_slices = m // dc
+        self._base_width = m
+        self.g_a = AnalysisTransform(n, m, device=device)
+        self.g_s = SynthesisTransform(n, m, device=device)
+        self.h_a = HyperAnalysis(m, n, device=device)
+        self.h_mean_s = HyperSynthesis(n, m, device=device)
+        self.h_scale_s = HyperSynthesis(n, m, device=device)
+        cins = [m + dc * min(i, cfg.max_support_slices) for i in range(self.num_slices)]
+        self.cc_mean_transforms = SliceTransforms(cins, dc, device=device)
+        self.cc_scale_transforms = SliceTransforms(cins, dc, device=device)
+        self.lrp_transforms = SliceTransforms([c + dc for c in cins], dc, device=device)
+        self.entropy_bottleneck = EntropyBottleneck(n, device=device)
+
+    def analyze(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, 3) -> y (B, H/16, W/16, M)."""
+        return nhwc(self.g_a(nchw(x)))
+
+    def _hyper_params(self, z_hat: torch.Tensor):
+        return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
+
+    def codec_synth(self, which: int, y_hat):
+        """One synthesis whatever `which` asks."""
+        return nhwc(torch.clamp(self.g_s(nchw(y_hat)), 0.0, 1.0))

@@ -1,9 +1,10 @@
 """Weights for the port: the JAX parameter tree mapped to a reference-named
 state dict, and a seeded initialiser that mirrors the JAX initialisers.
 
-`from_jax_params` is the port's own copy of the mapping in
-`progressivecodec_tpu/models/torch_import.py:export_progressive`, limited
-to the stacked ChannelProgressiveWACNN family:
+`from_jax_params` is the port's own copy of the mappings in
+`progressivecodec_tpu/models/torch_import.py` (`export_progressive`,
+`export_wacnn`) for ChannelProgressiveWACNN, stacked or unrolled, with
+joiners, learnable masks and u_net_post refinement, and for WACNN:
 
   conv kernel     HWIO        -> OIHW   (transpose 3, 2, 0, 1)
   deconv kernel   HWIO        -> IOHW   (transpose 2, 3, 0, 1)
@@ -26,7 +27,8 @@ import torch.nn as nn
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from progressivecodec_tpu_torch.layers.blocks import GDN, WindowAttention
-from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
+from progressivecodec_tpu_torch.models.progressive import uses_stacked_prog
+from progressivecodec_tpu_torch.models.registry import get_model
 from progressivecodec_tpu_torch.ops.math import nonneg_init
 
 F32 = torch.float32
@@ -38,8 +40,8 @@ def _t(a) -> torch.Tensor:
 
 
 def from_jax_params(params_np: dict, cfg: ModelConfig) -> dict:
-    """JAX `variables["params"]` (numpy leaves, stacked enhancement bank)
-    -> state dict of float32 CPU tensors named like the reference."""
+    """JAX `variables["params"]` (numpy leaves) of the model `cfg` names ->
+    state dict of float32 CPU tensors named like the reference."""
     sd: dict = {}
 
     def put_conv(prefix, node):
@@ -105,37 +107,79 @@ def from_jax_params(params_np: dict, cfg: ModelConfig) -> dict:
         for j in range(5):
             put_conv(f"{prefix}{2 * j}.", node[f"conv{j}"])
 
-    if cfg.multiple_encoder:
-        put_analysis("g_a.0.", params_np["g_a0"])
-        put_analysis("g_a.1.", params_np["g_a1"])
+    def put_bank(prefix, node, n):
+        for i in range(n):
+            put_stack5(f"{prefix}{i}.", node[f"s{i}"])
+
+    def put_cbr(prefix, node):  # UNet ConvBlockResidual
+        put_conv(f"{prefix}conv.0.", node["conv1"])
+        put_conv(f"{prefix}conv.2.", node["conv2"])
+        sd[f"{prefix}conv.3.fc.0.weight"] = _t(np.transpose(node["se"]["fc1"]))
+        sd[f"{prefix}conv.3.fc.2.weight"] = _t(np.transpose(node["se"]["fc2"]))
+        put_conv(f"{prefix}up_dim.", node["up_dim"])
+
+    def put_refine(prefix, node):  # Sequential(UNet, conv3x3)
+        unet = node["layers_0"]
+        for name in ("conv1", "conv2", "conv3", "up_conv3", "up_conv2"):
+            put_cbr(f"{prefix}0.{name}.", unet[name])
+        for i in range(4):
+            put_conv(f"{prefix}0.context_refine.{i}.conv1.", unet[f"refine{i}"]["conv1"])
+            put_conv(f"{prefix}0.context_refine.{i}.conv2.", unet[f"refine{i}"]["conv2"])
+        put_conv(f"{prefix}0.up3.0.", unet["up3"]["conv"])
+        put_conv(f"{prefix}0.up2.0.", unet["up2"]["conv"])
+        put_conv(f"{prefix}1.", node["layers_1"])
+
+    p = params_np
+    wacnn = cfg.name == "cnn"  # one of each transform, M // dim_chunk slices
+    if cfg.multiple_encoder and not wacnn:
+        put_analysis("g_a.0.", p["g_a0"])
+        put_analysis("g_a.1.", p["g_a1"])
     else:
-        put_analysis("g_a.", params_np["g_a"])
-    if cfg.multiple_decoder:
-        put_synthesis("g_s.0.", params_np["g_s0"])
-        put_synthesis("g_s.1.", params_np["g_s1"])
+        put_analysis("g_a.", p["g_a"])
+    if cfg.multiple_decoder and not wacnn:
+        put_synthesis("g_s.0.", p["g_s0"])
+        put_synthesis("g_s.1.", p["g_s1"])
     else:
-        put_synthesis("g_s.", params_np["g_s"])
-    put_stack5("h_a.", params_np["h_a"])
-    if cfg.multiple_hyperprior:
+        put_synthesis("g_s.", p["g_s"])
+    put_stack5("h_a.", p["h_a"])
+    if cfg.multiple_hyperprior and not wacnn:
         for i in range(2):
-            put_hyper_synthesis(f"h_mean_s.{i}.", params_np[f"h_mean_s{i}"])
-            put_hyper_synthesis(f"h_scale_s.{i}.", params_np[f"h_scale_s{i}"])
+            put_hyper_synthesis(f"h_mean_s.{i}.", p[f"h_mean_s{i}"])
+            put_hyper_synthesis(f"h_scale_s.{i}.", p[f"h_scale_s{i}"])
     else:
-        put_hyper_synthesis("h_mean_s.", params_np["h_mean_s"])
-        put_hyper_synthesis("h_scale_s.", params_np["h_scale_s"])
+        put_hyper_synthesis("h_mean_s.", p["h_mean_s"])
+        put_hyper_synthesis("h_scale_s.", p["h_scale_s"])
+    n_base = cfg.M // cfg.dim_chunk if wacnn else cfg.ns0
     for bank, ref in (("cc_mean", "cc_mean_transforms"), ("cc_scale", "cc_scale_transforms"),
                       ("lrp", "lrp_transforms")):
-        for i in range(cfg.ns0):
-            put_stack5(f"{ref}.{i}.", params_np[bank][f"s{i}"])
-    for bank in PROG_BANKS:
-        node = params_np[bank]  # each leaf carries a leading slice axis
-        ref = bank.replace("_prog", "_transforms_prog")
-        for i in range(cfg.num_prog_slices):
-            put_stack5(f"{ref}.{i}.", {
-                conv: {pn: np.asarray(v)[i] for pn, v in leaves.items()}
-                for conv, leaves in node.items()
-            })
-    eb = params_np["entropy_bottleneck"]
+        put_bank(f"{ref}.", p[bank], n_base)
+    if not wacnn:
+        for bank in PROG_BANKS:
+            ref = bank.replace("_prog", "_transforms_prog") + "."
+            if uses_stacked_prog(cfg):  # each leaf carries a leading slice axis
+                for i in range(cfg.num_prog_slices):
+                    put_stack5(f"{ref}{i}.", {
+                        conv: {pn: np.asarray(v)[i] for pn, v in leaves.items()}
+                        for conv, leaves in p[bank].items()
+                    })
+            else:  # the unrolled lrp bank has ns0 entries
+                put_bank(ref, p[bank], cfg.ns0 if bank == "lrp_prog" else cfg.num_prog_slices)
+        if cfg.joiner_policy in ("cond", "channel_cond", "channel_res"):
+            for i in range(cfg.ns0):
+                for j in range(3):
+                    put_conv(f"joiner.{i}.{2 * j}.", p[f"joiner{i}"][f"conv{j}"])
+        if "learnable" in cfg.mask_policy:
+            for i in range(cfg.num_prog_slices):
+                node = p[f"mask_conv{i}"]
+                for prefix, conv in (("0.", node["conv0"]), ("2.", node["conv1"]),
+                                     ("4.0.", node["up"]["conv"]), ("6.", node["conv2"])):
+                    put_conv(f"masking.mask_conv.{i}.{prefix}", conv)
+        if cfg.u_net_post == 1:
+            put_refine("refine.", p["refine"])
+        elif cfg.u_net_post == 2:
+            for i in range(2):
+                put_refine(f"refine.{i}.", p[f"refine{i}"])
+    eb = p["entropy_bottleneck"]
     for i in range(5):
         sd[f"entropy_bottleneck._matrix{i}"] = _t(eb[f"matrix{i}"])
         sd[f"entropy_bottleneck._bias{i}"] = _t(eb[f"bias{i}"])
@@ -147,12 +191,13 @@ def from_jax_params(params_np: dict, cfg: ModelConfig) -> dict:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """Seeded state dict (float32, CPU) drawn as the JAX initialisers draw:
+    """Seeded state dict (float32, CPU) of the model `cfg` names, drawn as
+    the JAX initialisers draw:
     Kaiming-normal fan_out convs and deconvs with zero biases, GDN beta = 1
     and gamma = 0.1 I in reparam space, lecun-normal (truncated) attention
     linears, truncated-normal(0.02) relative-position tables, and the
     bottleneck's own init.  The numbers differ from JAX's for the same seed."""
-    skeleton = ChannelProgressiveWACNN(cfg, device="meta")
+    skeleton = get_model(cfg, device="meta")
     sd: dict = {}
 
     def normal(shape, std):
@@ -175,7 +220,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
         elif isinstance(mod, nn.Linear):
             fan_in = mod.weight.shape[1]
             sd[p + "weight"] = trunc(mod.weight.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
-            sd[p + "bias"] = torch.zeros(mod.bias.shape, dtype=F32)
+            if mod.bias is not None:
+                sd[p + "bias"] = torch.zeros(mod.bias.shape, dtype=F32)
         elif isinstance(mod, GDN):
             c = mod.beta.shape[0]
             sd[p + "beta"] = nonneg_init(torch.ones(c, dtype=F32))

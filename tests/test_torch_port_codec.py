@@ -26,10 +26,13 @@ from progressivecodec_tpu.models.codec_granular import GranularCodec as JaxGranu
 from progressivecodec_tpu.models.progressive import ChannelProgressiveWACNN as JaxModel
 from progressivecodec_tpu.models.torch_import import import_progressive
 
+from test_torch_port_variants import one_torch_thread  # noqa: F401  (autouse)
+
 from progressivecodec_tpu_torch.coder import rans_device
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec, make_codec
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
+from progressivecodec_tpu_torch.models.registry import get_model
 from progressivecodec_tpu_torch.models.weights import from_jax_params, init_params
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -246,18 +249,19 @@ def test_entry_points_raise_without_card(setup):
         make_codec(codec.model)
 
 
-@pytest.mark.parametrize("what", ["groups", "unrolled", "u_net_post"])
+@pytest.mark.parametrize("what", ["coder_mesh", "rate", "other_model"])
 def test_unported_options_raise(setup, what):
+    """What the port still refuses: mesh-sharded coding (the parallel/
+    slice), REM (name="rate", the next slice), and a model of no family
+    the codec serves."""
     codec, _ = setup
     with pytest.raises(NotImplementedError):
-        if what == "groups":
-            GranularCodec(codec.model, groups=2, device="cpu")
-        elif what == "unrolled":
-            ChannelProgressiveWACNN(
-                ModelConfig(**TINY_KW, support_progressive_slices=2), device="cpu"
-            )
+        if what == "coder_mesh":
+            GranularCodec(codec.model, groups=2, coder_mesh=object(), device="cpu")
+        elif what == "rate":
+            get_model(ModelConfig(**{**TINY_KW, "name": "rate"}), device="cpu")
         else:
-            ChannelProgressiveWACNN(ModelConfig(**TINY_KW, u_net_post=1), device="cpu")
+            GranularCodec(torch.nn.Linear(2, 2), device="cpu")
 
 
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "progressivecodec_tpu"}

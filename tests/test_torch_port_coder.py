@@ -21,6 +21,8 @@ from progressivecodec_tpu.coder.tables import merge_tables as jax_merge_tables
 from progressivecodec_tpu.entropy.bottleneck import build_bottleneck_tables as jax_bt
 from progressivecodec_tpu.entropy.gaussian import build_gaussian_tables as jax_gt
 
+from test_torch_port_variants import one_torch_thread  # noqa: F401  (autouse)
+
 from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
 from progressivecodec_tpu_torch.coder.tables import merge_tables
 from progressivecodec_tpu_torch.config import ScaleTableConfig

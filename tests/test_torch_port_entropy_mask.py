@@ -22,6 +22,8 @@ from progressivecodec_tpu.models.codec import Codec as JaxCodec
 from progressivecodec_tpu.models.progressive import ChannelProgressiveWACNN as JaxModel
 from progressivecodec_tpu.models.torch_import import export_progressive, import_progressive
 
+from test_torch_port_variants import one_torch_thread  # noqa: F401  (autouse)
+
 from progressivecodec_tpu_torch import config
 from progressivecodec_tpu_torch.entropy.gaussian import build_indexes
 from progressivecodec_tpu_torch.layers import masking
@@ -69,12 +71,18 @@ def test_config_json_reads_both_ways():
 
 
 @pytest.mark.parametrize("kw", [{}, dict(multiple_decoder=False), dict(multiple_hyperprior=True),
-                                dict(multiple_encoder=False)])
+                                dict(multiple_encoder=False),
+                                dict(stack_prog=False, multiple_encoder=False, u_net_post=2),
+                                dict(mask_policy="three-levels-learnable", joiner_policy="cond"),
+                                dict(division_dimension=(48, 64), support_progressive_slices=1)])
 def test_from_jax_params_equals_export_progressive(kw):
     cfg, jcfg = _cfgs(**kw)
     sd = init_params(cfg, torch.Generator().manual_seed(1))
     params = import_progressive({k: v.numpy() for k, v in sd.items()}, jcfg)
-    assert params["cc_mean_prog"]["conv0"]["kernel"].shape[0] == cfg.num_prog_slices
+    if cfg.stack_prog and "learnable" not in cfg.mask_policy and not cfg.support_progressive_slices:
+        assert params["cc_mean_prog"]["conv0"]["kernel"].shape[0] == cfg.num_prog_slices
+    else:  # unrolled banks; the lrp bank has ns0 entries
+        assert len(params["lrp_prog"]) == cfg.ns0 and len(params["cc_mean_prog"]) == cfg.num_prog_slices
     ours, ref = from_jax_params(params, cfg), export_progressive(params, jcfg)
     assert set(ours) == set(ref)
     for k in ref:

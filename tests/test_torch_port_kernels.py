@@ -385,3 +385,73 @@ def test_tiny_codec_round_trip_on_card(cuda_device, q):
     assert torch.equal(out["y_hat"], data["y_hat"])
     assert rans_cuda.rans_encode_scan.launches == n_enc + 1
     assert rans_cuda.rans_decode_scan.launches == n_dec + 1 + TINY.ns0 + (q > 0)
+
+
+def _grouped_on_card(tables_np, device, lanes, groups, n, seed, smem_cap=None):
+    """Code two stages as PCT1-G on the CPU, decode them with the grouped
+    kernel and its twin; bit for bit, one launch per stage, stream_ok."""
+    t = rans_device.DeviceTables.from_tables(tables_np, "cpu")
+    st = [tuple(torch.from_numpy(a) for a in _stage(tables_np, m, seed + m)) for m in (n, n // 3 + 1)]
+    streams, n_words, _, _ = rans_device.encode_stages_grouped(st, t, lanes, groups)
+    streams = streams.to(device)
+    td = rans_device.DeviceTables.from_tables(tables_np, device)
+    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    for _, idx, keep in st:
+        ig = rans_device._pad_to_grid(idx, lanes).to(device)
+        kg = rans_device._pad_to_grid(keep.to(torch.uint8), lanes).to(device)
+        n0 = rans_cuda.rans_decode_scan_grouped.launches
+        got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, td.dec_sf,
+                                                 td.compact, smem_cap=smem_cap)
+        torch.cuda.synchronize()
+        assert rans_cuda.rans_decode_scan_grouped.launches == n0 + 1
+        want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, td.dec_sf)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        dec = rans_device.GroupedDecoderState(got[0], got[1], dec.esc_offsets)
+    assert bool(rans_device.grouped_stream_ok(dec))
+    assert torch.equal(dec.offsets.cpu(), n_words.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,groups,n", [(512, 4, 30000), (512, 16, 20000), (32, 4, 3000),
+                                            (1024, 2, 20000), (64, 64, 5000), (96, 3, 4000),
+                                            (64, 4, 0)])
+def test_grouped_decode_kernel_matches_twin(cuda_device, tables, lanes, groups, n):
+    _grouped_on_card(tables[0], cuda_device, lanes, groups, n, lanes + groups)
+
+
+@pytest.mark.cuda
+def test_grouped_decode_kernel_global_table_path(cuda_device, tables):
+    tables_np = tables[0]
+    _grouped_on_card(tables_np, cuda_device, 512, 4, 20000, 3,
+                     smem_cap=_smem_cap(tables_np, 128, "global"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kw,groups", [({}, 4), (dict(stack_prog=False, u_net_post=1), 1),
+                                             (dict(name="cnn"), 2)])
+def test_tiny_codec_families_round_trip_on_card(cuda_device, model_kw, groups):
+    """Grouped coding, the unrolled enhancement with the UNet refinement,
+    and WACNN, each through the kernels: one encode launch and one decode
+    launch per stage."""
+    import dataclasses
+
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.models.registry import get_model
+    from progressivecodec_tpu_torch.models.weights import init_params
+
+    cfg = dataclasses.replace(TINY, **model_kw)
+    model = get_model(cfg)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(1)), strict=True)
+    codec = GranularCodec(model, lanes=64, groups=groups)
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(2), dtype=torch.float32)
+    scans = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, rans_cuda.rans_decode_scan_grouped)
+    before = [s.launches for s in scans]
+    data = codec.compress(x.to(cuda_device), quality=5, simulate=True)
+    out = codec.decompress(codec.deserialize(codec.serialize(data)))
+    assert out["stream_ok"]
+    assert torch.equal(out["y_hat"], data["y_hat"])
+    enc, dec, grp = (s.launches - b for s, b in zip(scans, before))
+    n_prog = 0 if cfg.name == "cnn" else (1 if model.stacked else cfg.num_prog_slices)
+    stages = 1 + (cfg.M // cfg.dim_chunk if cfg.name == "cnn" else cfg.ns0) + n_prog
+    assert (enc, dec, grp) == ((1, stages, 0) if groups == 1 else (1, 0, stages))

@@ -21,6 +21,8 @@ from progressivecodec_tpu.models.torch_import import import_progressive
 from progressivecodec_tpu.ops import conv as jconv
 from progressivecodec_tpu.ops import math as jmath
 
+from test_torch_port_variants import one_torch_thread  # noqa: F401  (autouse)
+
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.layers import blocks
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
