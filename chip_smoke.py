@@ -29,11 +29,27 @@ printing a result:
      PCT1-G with groups=4 at q in {0, 10}, whose y_hat must equal the
      one-stream codec's; the reference CLI default ModelConfig(
      multiple_decoder=False, stack_prog=False) through the unrolled
-     enhancement at q in {0, 5, 10}; WACNN (name="cnn", N=192, M=320) at
+     enhancement at q in {0, 10}; WACNN (name="cnn", N=192, M=320) at
      q=0.  Each decoded y_hat must equal the encoder's simulated y_hat bit
      for bit, with stream_ok, and the launch counters, zeroed before each
      round trip, must show one encode launch and one decode launch per
-     stage, on the grouped kernel when groups > 1.
+     stage, on the grouped kernel when groups > 1;
+  5. REM, ModelConfig(name="rate") (N=192, M=640, unrolled, 3 checkpoint
+     levels x 10 LatentRateReduction banks), with every bank's zero_out
+     weight drawn from N(0, 0.02^2) (seed SEED + 5; zero at init, where
+     the banks are the identity): round trips at q in {0.01, 0.25, 1.0, 10}
+     and in PCT1-G with groups=4 at q=1.0; at q=1.0 the keep flags and the
+     stream must differ from the identity model's (zero_out = 0); then
+     the escalation cascade at q=10 (three checkpoint containers and the
+     final one, each through the container bytes): every stream_ok, the
+     decoder's anchors, y_hat and x_hat equal to the encoder's bit for bit,
+     4 encode and 84 decode launches;
+  6. the eval path on the flagship: `evaluate_codec` and
+     `entropy_estimate_eval` over SyntheticKodak(n=2) at q in {0, 5, 10}
+     (real bpp < estimated bpp * 1.25 + 0.3, JAX's own bound), with the
+     launches of every round trip counted, then
+     `cli.eval.main(["--synthetic", "--max-images", "1", "--qualities",
+     "0,10"])` in this process.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object.
 """
@@ -513,14 +529,26 @@ def synthetic_image(batch: int, seed: int):
     return np.stack(out).astype(np.float32)
 
 
+def zero_launches():
+    from progressivecodec_tpu_torch.coder import rans_cuda
+
+    for scan in (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan,
+                 rans_cuda.rans_decode_scan_grouped):
+        scan.launches = 0
+
+
+def read_launches():
+    """(encode, decode, grouped decode) launches since `zero_launches`."""
+    from progressivecodec_tpu_torch.coder import rans_cuda
+
+    return (rans_cuda.rans_encode_scan.launches, rans_cuda.rans_decode_scan.launches,
+            rans_cuda.rans_decode_scan_grouped.launches)
+
+
 def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
     """One checked round trip; the launch counts are zeroed just before it
     and read just after it.  Returns the counts, the escape words and y_hat."""
-    from progressivecodec_tpu_torch.coder import rans_cuda
-
-    scans = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, rans_cuda.rans_decode_scan_grouped)
-    for scan in scans:
-        scan.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if latent is None:
@@ -536,7 +564,7 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
     out = codec.decompress(back)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    enc_n, dec_n, grp_n = (scan.launches for scan in scans)
+    enc_n, dec_n, grp_n = read_launches()
 
     b = x.shape[0]
     cfg = codec.cfg
@@ -563,6 +591,136 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
         f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, launches encode={enc_n} "
         f"decode={dec_n} grouped decode={grp_n}, stream_ok, y_hat bit-exact")
     return {"enc": enc_n, "dec": dec_n, "grouped": grp_n, "esc": n_esc, "y_hat": out["y_hat"]}
+
+
+def kept_and_blob(codec, x, q):
+    """(keep flags of every unrolled enhancement slice, the container) of
+    one compress."""
+    kept = []
+    orig = codec.model.codec_prog_params
+
+    def spy(*args):
+        out = orig(*args)
+        kept.append(out[4])
+        return out
+
+    codec.model.codec_prog_params = spy
+    try:
+        data = codec.compress(x, quality=q)
+    finally:
+        del codec.model.codec_prog_params
+    return torch.cat(kept, dim=-1), codec.serialize(data)
+
+
+def check_rem(dev, x1, cfg, lanes=LANES):
+    """Phase 5: REM with live banks through the codec, then the escalation
+    cascade.  Returns the cascade's launch counts."""
+    from progressivecodec_tpu_torch.models import rem
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+
+    model = seeded_model(cfg, dev)
+    g = torch.Generator().manual_seed(SEED + 5)
+    zero_out = [m.zero_out.weight for levels in model.post_latent for m in levels]
+    with torch.no_grad():
+        for w in zero_out:
+            w.copy_(0.02 * torch.randn(w.shape, generator=g, dtype=torch.float32))
+    n_params = sum(p.numel() for p in model.parameters())
+    bank_params = sum(p.numel() for p in model.post_latent.parameters())
+    log(f"  REM: {n_params} parameters ({bank_params} in {len(zero_out)} banks), "
+        f"unrolled {not model.stacked}")
+    codec = GranularCodec(model, lanes=lanes, device=dev)
+    roundtrip(codec, x1, 10, "REM warm-up q=10 b=1")
+    for q in (0.01, 0.25, 1.0, 10):
+        roundtrip(codec, x1, q, f"REM q={q} b=1")
+
+    keep_live, blob_live = kept_and_blob(codec, x1, 1.0)
+    saved = [w.clone() for w in zero_out]
+    with torch.no_grad():
+        for w in zero_out:
+            w.zero_()
+        keep_id, blob_id = kept_and_blob(codec, x1, 1.0)
+        for w, v in zip(zero_out, saved):
+            w.copy_(v)
+    moved = int((keep_live != keep_id).sum())
+    log(f"  REM bank live at q=1.0: keep count {int(keep_live.sum())} (identity model "
+        f"{int(keep_id.sum())}: the quantile fixes it), {moved} keep flags differ, "
+        f"{len(blob_live)} bytes (identity model {len(blob_id)}), streams differ "
+        f"{blob_live != blob_id}")
+    require(moved > 0 and blob_live != blob_id, "REM banks did not change the stream")
+
+    grouped = GranularCodec(model, lanes=lanes, groups=4, device=dev)
+    roundtrip(grouped, x1, 1.0, "REM groups=4 warm-up q=1.0 b=1")
+    roundtrip(grouped, x1, 1.0, "REM groups=4 q=1.0 b=1")
+    del grouped
+
+    rem.escalation_compress(codec, x1, quality=10.0)  # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = rem.escalation_compress(codec, x1, quality=10.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    blobs = [codec.serialize(d) for d in data["checkpoints"] + [data["final"]]]
+    sent = [codec.deserialize(b) for b in blobs]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = rem.escalation_decompress(codec, {"checkpoints": sent[:-1], "final": sent[-1]})
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = read_launches()
+    require(out["stream_ok"], "escalation: stream_ok is False")
+    require(len(out["anchors"]) == len(data["anchors"]) == len(cfg.check_levels),
+            "escalation: wrong number of checkpoint levels")
+    require(all(torch.equal(a, b) for a, b in zip(out["anchors"], data["anchors"])),
+            "escalation: the decoder's anchors != the encoder's")
+    require(torch.equal(out["y_hat"], data["final"]["y_hat"])
+            and torch.equal(out["x_hat"], data["final"]["x_hat"]),
+            "escalation: decoded y_hat or x_hat != the encoder's")
+    n_levels = len(blobs)
+    want = (n_levels, n_levels * (1 + cfg.ns0 + cfg.num_prog_slices), 0)
+    require(launches == want, f"escalation: {launches} launches, want {want}")
+    log(f"  REM escalation q=10: bytes per level {[len(b) for b in blobs]} (total "
+        f"{sum(len(b) for b in blobs)}), encode {1e3 * (t1 - t0):.1f} ms, decode "
+        f"{1e3 * (t3 - t2):.1f} ms, launches encode={launches[0]} decode={launches[1]}, "
+        f"every stream_ok, anchors, y_hat and x_hat bit-exact")
+    return launches
+
+
+def check_eval(codec, n_images=2, qualities=(0.0, 5.0, 10.0)):
+    """Phase 6: the real-codec and entropy-estimate ladders on the flagship
+    over SyntheticKodak, then the eval CLI in this process."""
+    from progressivecodec_tpu_torch.cli import eval as eval_cli
+    from progressivecodec_tpu_torch.data.datasets import SyntheticKodak
+    from progressivecodec_tpu_torch.training.evaluate import entropy_estimate_eval, evaluate_codec
+
+    ds = SyntheticKodak(n=n_images)
+    images = [ds[i] for i in range(len(ds))]
+    zero_launches()
+    real = evaluate_codec(codec, images, pr_list=qualities)
+    launches = read_launches()
+    n_dec = sum(1 + codec.cfg.ns0 + (q > 0) for q in qualities) * n_images
+    want = (len(qualities) * n_images, n_dec, 0)
+    require(launches == want, f"evaluate_codec: {launches} launches, want {want}")
+    est = entropy_estimate_eval(codec, images, pr_list=qualities)
+    for j, q in enumerate(qualities):
+        log(f"  eval q={q}: real {real['bpp'][j]:.4f} bpp, {real['psnr'][j]:.3f} dB PSNR, "
+            f"{real['ms_ssim_db'][j]:.3f} dB MS-SSIM, encode {1e3 * real['enc_time'][j]:.1f} ms, "
+            f"decode {1e3 * real['dec_time'][j]:.1f} ms; estimate {est['bpp'][j]:.4f} bpp, "
+            f"{est['psnr'][j]:.3f} dB PSNR")
+        require(np.isfinite([real["bpp"][j], real["psnr"][j], real["ms_ssim_db"][j],
+                             est["bpp"][j], est["psnr"][j]]).all(), f"eval q={q}: not finite")
+        require(real["bpp"][j] < est["bpp"][j] * 1.25 + 0.3,
+                f"eval q={q}: real bpp {real['bpp'][j]} beyond the estimate's bound")
+    log(f"  evaluate_codec launches over {n_images} images x {len(qualities)} qualities: "
+        f"encode={launches[0]} decode={launches[1]}")
+    t0 = time.perf_counter()
+    result = eval_cli.main(["--synthetic", "--max-images", "1", "--qualities", "0,10"])
+    require(result["real_codec"]["bpp"][0] < result["real_codec"]["bpp"][1]
+            and all(r < e * 1.25 + 0.3 for r, e in zip(result["real_codec"]["bpp"],
+                                                        result["entropy_estimate"]["bpp"])),
+            "cli.eval: bpp out of order or beyond the estimate's bound")
+    log(f"  cli.eval in process on {result['device']}: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def seeded_model(cfg, dev, seed=SEED):
@@ -637,12 +795,12 @@ def main() -> int:
     for q in (0, 10):
         got = roundtrip(grouped, x1, q, f"groups=4 q={q} b=1", want_y_hat=counts[q]["y_hat"])
     grouped_counts = got
-    del grouped, codec, model
+    del grouped
 
     log("  reference CLI default ModelConfig(multiple_decoder=False, stack_prog=False): unrolled")
     cli = GranularCodec(seeded_model(ModelConfig(multiple_decoder=False, stack_prog=False), dev), lanes=LANES)
     roundtrip(cli, x1, 10, "unrolled warm-up q=10 b=1")
-    for q in (0, 5, 10):
+    for q in (0, 10):
         roundtrip(cli, x1, q, f"unrolled q={q} b=1")
     del cli
 
@@ -651,6 +809,13 @@ def main() -> int:
     roundtrip(wacnn, x1, 0, "WACNN warm-up q=0 b=1")
     roundtrip(wacnn, x1, 0, "WACNN q=0 b=1")
     del wacnn
+
+    log("phase 5: REM ModelConfig(name='rate'), live banks, and the escalation cascade")
+    check_rem(dev, x1, ModelConfig(name="rate"))
+
+    log("phase 6: the eval path on the flagship ModelConfig()")
+    check_eval(codec)
+    del codec, model
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     kernels = [

@@ -1,10 +1,10 @@
-"""Factorized-prior entropy bottleneck for the z latent: parameters, medians
-and the host-side CDF table builder.
+"""Factorized-prior entropy bottleneck for the z latent: parameters, medians,
+the eval likelihood forward and the host-side CDF table builder.
 
 Counterpart of `progressivecodec_tpu/entropy/bottleneck.py`.  Parameter
 names follow the reference (`_matrix{i}`, `_bias{i}`, `_factor{i}`,
-`quantiles`).  The likelihood forward belongs to the training slice and is
-not here yet.
+`quantiles`).  The noise-quantised training forward and `aux_loss` belong
+to the training slice and are not here yet.
 """
 
 from __future__ import annotations
@@ -12,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from progressivecodec_tpu_torch.entropy.cdf import batched_pmf_to_cdf
+from progressivecodec_tpu_torch.ops.math import lower_bound
 
 _FILTERS = (3, 3, 3, 3)
 F32 = torch.float32
+LIKELIHOOD_BOUND = 1e-9
 
 
 class EntropyBottleneck(nn.Module):
@@ -65,6 +68,40 @@ class EntropyBottleneck(nn.Module):
     def medians(self) -> torch.Tensor:
         """(C,) per-channel median used to round z."""
         return self.quantiles[:, 0, 1]
+
+    def _logits_cumulative(self, values: torch.Tensor) -> torch.Tensor:
+        """values (C, 1, N) -> logits (C, 1, N): per stage, softplus(matrix)
+        @ logits + bias, then logits += tanh(factor) * tanh(logits)."""
+        logits = values
+        for i in range(len(_FILTERS) + 1):
+            logits = torch.matmul(F.softplus(getattr(self, f"_matrix{i}")), logits)
+            logits = logits + getattr(self, f"_bias{i}")
+            if i < len(_FILTERS):
+                logits = logits + torch.tanh(getattr(self, f"_factor{i}")) * torch.tanh(logits)
+        return logits
+
+    def _likelihood(self, values: torch.Tensor) -> torch.Tensor:
+        """values (C, 1, N) -> P(v - .5 < Z < v + .5)."""
+        lower = self._logits_cumulative(values - 0.5)
+        upper = self._logits_cumulative(values + 0.5)
+        sign = -torch.sign(lower + upper).detach()
+        return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
+
+    def forward(self, x: torch.Tensor, *, training: bool = False):
+        """x (B, H, W, C) -> (outputs, likelihoods), both (B, H, W, C): at
+        eval, x rounded around the medians and its bounded likelihood."""
+        if training:
+            raise NotImplementedError(
+                "the noise-quantised training forward comes with the training slice of the port"
+            )
+        b, h, w, c = x.shape
+        values = x.to(F32).permute(3, 0, 1, 2).reshape(c, 1, -1)
+        med = self.medians().reshape(c, 1, 1)
+        outputs = torch.round(values - med) + med
+        likelihood = lower_bound(self._likelihood(outputs), LIKELIHOOD_BOUND)
+        outputs = outputs.reshape(c, b, h, w).permute(1, 2, 3, 0)
+        likelihood = likelihood.reshape(c, b, h, w).permute(1, 2, 3, 0)
+        return outputs.to(x.dtype), likelihood
 
     def host_params(self) -> dict:
         """numpy copy keyed like the JAX tree (matrix0, bias0, ..., quantiles)."""

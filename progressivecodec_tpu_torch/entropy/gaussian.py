@@ -1,8 +1,10 @@
-"""Scale-indexed Gaussian conditional: CDF-row indexes and host tables.
+"""Scale-indexed Gaussian conditional: likelihoods, CDF-row indexes and
+host tables.
 
-Counterpart of `progressivecodec_tpu/entropy/gaussian.py` (`build_indexes`,
-`build_gaussian_tables`).  Scale math stays float32 so the encoder and the
-decoder derive the same index from the same sigma bits.
+Counterpart of `progressivecodec_tpu/entropy/gaussian.py`
+(`gaussian_likelihood`, the eval branch of `gaussian_forward`,
+`build_indexes`, `build_gaussian_tables`).  Scale math stays float32 so the
+encoder and the decoder derive the same index from the same sigma bits.
 """
 
 from __future__ import annotations
@@ -16,6 +18,37 @@ from progressivecodec_tpu_torch.entropy.cdf import batched_pmf_to_cdf
 from progressivecodec_tpu_torch.ops.math import lower_bound
 
 SCALE_BOUND = 0.11
+LIKELIHOOD_BOUND = 1e-9
+
+
+def standardized_cumulative(x: torch.Tensor) -> torch.Tensor:
+    """Phi(x) through erfc, which keeps precision in the tails."""
+    return 0.5 * torch.special.erfc(-(2**-0.5) * x)
+
+
+def gaussian_likelihood(inputs: torch.Tensor, scales: torch.Tensor,
+                        means: torch.Tensor | None = None,
+                        scale_bound: float = SCALE_BOUND) -> torch.Tensor:
+    """P(v - .5 < Y < v + .5) for Y ~ N(means, scales^2), bounded below by
+    LIKELIHOOD_BOUND."""
+    values = inputs if means is None else inputs - means
+    values = torch.abs(values.to(torch.float32))
+    scales = lower_bound(scales.to(torch.float32), scale_bound)
+    upper = standardized_cumulative((0.5 - values) / scales)
+    lower = standardized_cumulative((-0.5 - values) / scales)
+    return lower_bound(upper - lower, LIKELIHOOD_BOUND)
+
+
+def gaussian_forward(inputs: torch.Tensor, scales: torch.Tensor,
+                     means: torch.Tensor | None = None, *, training: bool = False):
+    """(outputs, likelihood) at eval: round around the means (or round),
+    then the likelihood of the rounded values."""
+    if training:
+        raise NotImplementedError(
+            "the noise-quantised training forward comes with the training slice of the port"
+        )
+    outputs = torch.round(inputs) if means is None else torch.round(inputs - means) + means
+    return outputs, gaussian_likelihood(outputs, scales, means)
 
 
 def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,

@@ -1,8 +1,9 @@
-"""Variance-aware latent masking for the stacked enhancement path.
+"""Variance-aware latent masking.
 
 Counterpart of `progressivecodec_tpu/layers/masking.py` for the policies
-reachable from the stacked path: point-based-std, two-levels,
-three-levels-std, scalable_res and an importance map (`cust_map`).
+the codec reaches: point-based-std, two-levels, three-levels-std,
+scalable_res and an importance map (`cust_map`), and the eval form of
+`apply_mask_noise`.
 
 The decoder recomputes the mask from sigma alone, so the mask must be a
 bit-exact function of sigma.  `quantile_mask` therefore reproduces
@@ -141,3 +142,11 @@ def stacked_channel_mask(scale_stack: torch.Tensor, *, pr: float,
         per_slice = torch.as_tensor(per_slice, device=scale_stack.device)
         return per_slice[:, None, None, None, :].expand(scale_stack.shape).contiguous()
     raise NotImplementedError(f"stacked mask policy {mask_pol!r}")
+
+
+def apply_mask_noise(mask: torch.Tensor, training: bool = False) -> torch.Tensor:
+    """A hard round at eval; the straight-through round of training comes
+    with the training slice of the port."""
+    if training:
+        raise NotImplementedError("the training mask comes with the training slice of the port")
+    return torch.round(mask)

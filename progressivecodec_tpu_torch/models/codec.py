@@ -77,6 +77,13 @@ class Codec:
             self.update()
         return self._gauss_row0
 
+    @torch.no_grad()
+    def forward_single_quality(self, x, quality: float, mask_pol: str | None = None) -> dict:
+        """The model's eval forward at one quality, with its likelihoods, on
+        x (B, H, W, 3) in [0, 1] (see the model's `forward_single_quality`)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return self.model.forward_single_quality(x, float(quality), mask_pol)
+
     def serialize(self, data: dict) -> bytes:
         """Container: magic | version u8 | quality f32 | batch u16 | z_h u16 |
         z_w u16 | lanes u16 | groups u8 | mask_pol len u8 + utf8 | per group

@@ -1,8 +1,9 @@
 """Granular codec: compress / decompress through shared model fragments.
 
 Counterpart of `progressivecodec_tpu/models/codec_granular.py` for
-ChannelProgressiveWACNN (stacked and unrolled enhancement) and WACNN, on
-one stream or on G independent sub-streams (PCT1-G, `groups`).
+ChannelProgressiveWACNN (stacked and unrolled enhancement), its REM
+subclass (`models/rem.py`, whose cascade passes `checkpoint_rep`) and
+WACNN, on one stream or on G independent sub-streams (PCT1-G, `groups`).
 
 The decoder re-derives every CDF index and the enhancement mask from
 sigma, so sigma must have the same bits on the encode and the decode side.
@@ -36,7 +37,7 @@ from progressivecodec_tpu_torch.coder.rans_device import (
 from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, check_lanes
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
-from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
+from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN, unstack_channels
 from progressivecodec_tpu_torch.models.wacnn import WACNN
 
 F32 = torch.float32
@@ -105,12 +106,6 @@ class GranularCodec(Codec):
     def _medians(self) -> torch.Tensor:
         return self.model.entropy_bottleneck.medians().detach()
 
-    @staticmethod
-    def _unstack(x_stack):
-        """(S, B, h, w, dc) -> (B, h, w, S*dc), slice-major channels."""
-        s_, b, h, w, dc = x_stack.shape
-        return x_stack.permute(1, 2, 3, 0, 4).reshape(b, h, w, s_ * dc)
-
     def _ones(self, n: int) -> torch.Tensor:
         return torch.ones((n,), dtype=torch.bool, device=self.device)
 
@@ -119,12 +114,6 @@ class GranularCodec(Codec):
 
     def _stacked(self) -> bool:
         return self._progressive and self.model.stacked
-
-    def _map_slice(self, cust_map, i: int):
-        if cust_map is None:
-            return None
-        dc = self.cfg.dim_chunk
-        return cust_map[..., i * dc : (i + 1) * dc]
 
     # ---------- shared pipelines ----------
 
@@ -156,16 +145,17 @@ class GranularCodec(Codec):
         return y_hat_base, mu_list, std_list
 
     def _prog_loop(self, quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
-                   vals_fn):
+                   checkpoint_rep, vals_fn):
         """Run the unrolled enhancement slices; vals_fn(i, mu, mask, keep, idx)
         supplies flat integer values.  Returns the reconstructed slices."""
         cfg, m = self.cfg, self.model
         prog_slices, mu_total, std_total = [], [], []
         for i in range(cfg.num_prog_slices):
+            cps = None if checkpoint_rep is None else m._hook_anchor(i, y_hat_base, checkpoint_rep)
             mu, scale, mut, mask, keep, idx, ms = m.codec_prog_params(
                 i, quality, mask_pol, lm, ls, tuple(y_hat_base), tuple(mu_total),
-                tuple(std_total), tuple(prog_slices), mu_list[i], std_list[i], None,
-                self._scale_table, self._map_slice(cust_map, i),
+                tuple(std_total), tuple(prog_slices), mu_list[i], std_list[i], cps,
+                self._scale_table, m._map_slice(cust_map, i),
             )
             std_total.append(scale if cfg.support_std else mut)
             mu_total.append(mut)
@@ -177,26 +167,30 @@ class GranularCodec(Codec):
 
     @torch.no_grad()
     def compress(self, x, quality: float = 0.0, mask_pol: str | None = None,
-                 simulate: bool = False, cust_map=None) -> dict:
+                 simulate: bool = False, cust_map=None, checkpoint_rep=None) -> dict:
         """x (B, H, W, 3) in [0, 1] -> container dict.  The stream and escape
         words stay on the device as int16 bit patterns; `serialize` makes
-        the bytes."""
+        the bytes.  `checkpoint_rep` (REM's cascade) anchors the unrolled
+        enhancement's refinement hook; the decoder must pass the same."""
         self.update()
         x = self._as_input(x)
         y = self.model.analyze(x)
         return self.compress_from_latent(
             y, tuple(x.shape), quality=quality, mask_pol=mask_pol, simulate=simulate,
-            cust_map=cust_map,
+            cust_map=cust_map, checkpoint_rep=checkpoint_rep,
         )
 
     @torch.no_grad()
     def compress_from_latent(self, y, x_shape, quality: float = 0.0,
                              mask_pol: str | None = None, simulate: bool = False,
-                             cust_map=None) -> dict:
+                             cust_map=None, checkpoint_rep=None) -> dict:
         """Encode from a precomputed latent y (B, h, w, M)."""
         cfg, m = self.cfg, self.model
         mask_pol = mask_pol or cfg.mask_policy
-        quality = float(quality)
+        # the container carries the quality as float32: the encoder uses that
+        # value too, or a quality such as 0.58 would rank the mask's quantile
+        # at another position than the decoder's
+        quality = float(np.float32(quality))
         self.update()
         y = self._as_input(y)
         row0 = self.gauss_row0
@@ -234,7 +228,7 @@ class GranularCodec(Codec):
                 sym = torch.round((prog.movedim(3, 0) - mu_st) * mask).to(I32)
                 stages.append((sym.reshape(-1), (idx + row0).reshape(-1), keep.reshape(-1)))
                 if simulate:
-                    y_hat_prog = self._unstack(
+                    y_hat_prog = unstack_channels(
                         m.codec_prog_recon_stacked(ms, mu_st, sym, keep, base_stack)
                     )
             else:
@@ -252,7 +246,7 @@ class GranularCodec(Codec):
                     return sym
 
                 prog_slices = self._prog_loop(quality, mask_pol, lm, ls, y_hat_base, mu_list,
-                                              std_list, cust_map, prog_vals)
+                                              std_list, cust_map, checkpoint_rep, prog_vals)
                 y_hat_prog = torch.cat(prog_slices, dim=-1)
 
         hz, wz = z.shape[1], z.shape[2]
@@ -295,8 +289,8 @@ class GranularCodec(Codec):
         return result
 
     @torch.no_grad()
-    def decompress(self, data: dict, cust_map=None) -> dict:
-        out = self.decompress_to_latent(data, cust_map=cust_map)
+    def decompress(self, data: dict, cust_map=None, checkpoint_rep=None) -> dict:
+        out = self.decompress_to_latent(data, cust_map=cust_map, checkpoint_rep=checkpoint_rep)
         which = 0 if float(data["quality"]) == 0 or not self._progressive else 1
         x_hat = self.model.codec_synth(which, out["y_hat"])
         return {"x_hat": x_hat, "stream_ok": out["stream_ok"], "y_hat": out["y_hat"]}
@@ -364,7 +358,7 @@ class GranularCodec(Codec):
         return dec_stage, dec
 
     @torch.no_grad()
-    def decompress_to_latent(self, data: dict, cust_map=None) -> dict:
+    def decompress_to_latent(self, data: dict, cust_map=None, checkpoint_rep=None) -> dict:
         """Entropy decode + slice reconstruction, stopping before g_s."""
         cfg, m = self.cfg, self.model
         self.update()
@@ -400,10 +394,10 @@ class GranularCodec(Codec):
                 quality, mask_pol, lm, ls, tuple(y_hat_base), self._scale_table, cust_map
             )
             vals = dec_stage(idx, keep, row0)
-            y_hat = self._unstack(m.codec_prog_recon_stacked(ms, mu_st, vals, keep, base_stack))
+            y_hat = unstack_channels(m.codec_prog_recon_stacked(ms, mu_st, vals, keep, base_stack))
         else:
             y_hat = torch.cat(self._prog_loop(
-                quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
+                quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map, checkpoint_rep,
                 lambda i, mu, mask, keep, idx: dec_stage(idx, keep, row0),
             ), dim=-1)
         return {"y_hat": y_hat, "stream_ok": bool(rans_device.stream_ok(dec[0]))}

@@ -15,9 +15,14 @@ Two enhancement paths, as in JAX:
     slices (or their means and scales, `all_scalable`), joined into the
     base by a residual or a joiner net, masked by sigma or a learnable map.
 
-Internals are NCHW `nn.Module`s.  The public methods (`analyze` and the
-`codec_*` fragments the granular codec calls) take and return channel-last
-tensors, like the JAX package (`transforms.ChARMFragments`).
+`forward_single_quality` is the eval forward at one quality, with the
+likelihoods.  `_refine_prog_params` is the hook REM (`models/rem.py`)
+overrides; `checkpoint_rep` anchors it in place of the base slices.
+
+Internals are NCHW `nn.Module`s.  The public methods (`analyze`,
+`forward_single_quality` and the `codec_*` fragments the granular codec
+calls) take and return channel-last tensors, like the JAX package
+(`transforms.ChARMFragments`).
 """
 
 from __future__ import annotations
@@ -28,9 +33,13 @@ import torch.nn as nn
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.device import resolve_device
 from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck
-from progressivecodec_tpu_torch.entropy.gaussian import build_indexes
+from progressivecodec_tpu_torch.entropy.gaussian import build_indexes, gaussian_forward
 from progressivecodec_tpu_torch.layers.blocks import Conv
-from progressivecodec_tpu_torch.layers.masking import channel_mask, stacked_channel_mask
+from progressivecodec_tpu_torch.layers.masking import (
+    apply_mask_noise,
+    channel_mask,
+    stacked_channel_mask,
+)
 from progressivecodec_tpu_torch.layers.masking_learnable import LearnableMaskStack
 from progressivecodec_tpu_torch.layers.unet import refine_net
 from progressivecodec_tpu_torch.models.transforms import (
@@ -47,14 +56,22 @@ from progressivecodec_tpu_torch.models.transforms import (
 
 def uses_stacked_prog(cfg: ModelConfig) -> bool:
     """Mirror of the JAX `_use_stacked_prog`: enhancement slices are
-    independent, so one bank codes them together."""
+    independent, so one bank codes them together.  REM refines slices one
+    by one and keeps the unrolled path."""
     return (
         cfg.stack_prog
         and cfg.support_progressive_slices == 0
         and not cfg.all_scalable
         and cfg.joiner_policy == "res"
         and "learnable" not in cfg.mask_policy
+        and cfg.name != "rate"
     )
+
+
+def unstack_channels(x_stack: torch.Tensor) -> torch.Tensor:
+    """(S, B, h, w, dc) -> (B, h, w, S*dc), slice-major channels."""
+    s_, b, h, w, dc = x_stack.shape
+    return x_stack.permute(1, 2, 3, 0, 4).reshape(b, h, w, s_ * dc)
 
 
 class JoinerStack(nn.Sequential):
@@ -82,10 +99,6 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
 
     def __init__(self, cfg: ModelConfig = ModelConfig(), device=None):
         super().__init__()
-        if cfg.name == "rate":
-            raise NotImplementedError(
-                "REM (name='rate') comes with the next slice of the port (models/rem.py)"
-            )
         self.stacked = uses_stacked_prog(cfg)
         if self.stacked and cfg.ns0 != cfg.num_prog_slices:
             raise NotImplementedError("the stacked bank needs ns0 == num_prog_slices")
@@ -213,10 +226,27 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         mut = mu + y_hat_base[i] if cfg.total_mu_rep else mu
         return mu, scale, mut, mean_support
 
+    def _prog_slice_nhwc(self, i, lm, ls, y_hat_base, mu_total, std_total, prog_slices):
+        """Channel-last `_prog_slice`."""
+        mu, scale, mut, ms = self._prog_slice(
+            i, nchw(lm), nchw(ls), *([nchw(t) for t in ts] for ts in
+                                     (y_hat_base, mu_total, std_total, prog_slices))
+        )
+        return nhwc(mu), nhwc(scale), nhwc(mut), nhwc(ms)
+
     def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol):
         """Hook for REM-style (mu, scale) refinement of enhancement slices;
         the identity here."""
         return mu, scale
+
+    def _hook_anchor(self, i: int, y_hat_base: list, checkpoint_rep):
+        """The refinement hook's anchor for slice i: the slice's channels of
+        a cascaded checkpoint representation when given, else its decoded
+        base slice."""
+        if checkpoint_rep is None:
+            return y_hat_base[i]
+        dc = self.cfg.dim_chunk
+        return checkpoint_rep[..., i * dc : (i + 1) * dc]
 
     def _mask_for(self, scale, pr, mask_pol, i, y_base_slice, cust_map=None):
         """Channel-last mask of enhancement slice i: the learnable levels
@@ -236,13 +266,82 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         )
 
     # ------------------------------------------------------------------
+    # single-quality eval forward
+    # ------------------------------------------------------------------
+
+    def forward_single_quality(self, x, quality: float, mask_pol=None, *, training: bool = False,
+                               checkpoint_rep=None, cust_map=None) -> dict:
+        """Eval forward at one quality: x (B, H, W, 3) -> {"x_hat",
+        "likelihoods": {"y", "z"}, "y_hat", "mu", "std"}, and at quality > 0
+        also "mask", "mu_base" and "std_base" (mu and std are the
+        enhancement's before refinement); channel-last.  Latents are
+        rounded around their means and x_hat is clipped to [0, 1]."""
+        if training:
+            raise NotImplementedError(
+                "the training forward (noise, losses, backward) comes with the training "
+                "slice of the port"
+            )
+        cfg = self.cfg
+        mask_pol = mask_pol or cfg.mask_policy
+        lm, ls, z_lik, y_slices, y_hat_base, y_lik, mu_base, std_base = self._forward_base(
+            self.analyze(x), cfg.ns1, cfg.ns0
+        )
+        cat = lambda ts: torch.cat(ts, dim=-1)  # noqa: E731
+        if quality == 0:
+            y_hat = cat(y_hat_base)
+            return {"x_hat": self.codec_synth(0, y_hat),
+                    "likelihoods": {"y": cat(y_lik), "z": z_lik},
+                    "y_hat": y_hat, "mu": cat(mu_base), "std": cat(std_base)}
+
+        y_prog = [y_slices[cfg.ns0 + i] - y_slices[i] if cfg.delta_encode else y_slices[cfg.ns0 + i]
+                  for i in range(cfg.num_prog_slices)]
+        if self.stacked:
+            y_st = torch.stack(y_prog)
+            mu, scale, mask, ms, base_stack = self._prog_stacked(
+                quality, mask_pol, lm, ls, y_hat_base, cust_map
+            )
+            mask = apply_mask_noise(mask)
+            _, lik = gaussian_forward((y_st - mu) * mask, scale * mask)
+            y_lik.append(unstack_channels(lik))
+            y0 = torch.round(y_st - mu) * mask + mu
+            y_hat = unstack_channels(self._prog_finish_stacked(ms, y0, base_stack))
+            mu_p, std_p, mask_p = (unstack_channels(t) for t in (mu, scale, mask))
+        else:
+            prog_slices, mu_total, std_total = [], [], []
+            mu_p, std_p, mask_p = [], [], []
+            for i in range(cfg.num_prog_slices):
+                mu, scale, mut, ms = self._prog_slice_nhwc(
+                    i, lm, ls, y_hat_base, mu_total, std_total, prog_slices
+                )
+                std_total.append(scale if cfg.support_std else mut)
+                mu_total.append(mut)
+                mu_p.append(mu)
+                std_p.append(scale)
+                mu, scale = self._refine_prog_params(
+                    i, quality, mu, scale, mu_base[i], std_base[i],
+                    self._hook_anchor(i, y_hat_base, checkpoint_rep), mask_pol,
+                )
+                mask = apply_mask_noise(self._mask_for(
+                    scale, quality, mask_pol, i, y_hat_base[i], self._map_slice(cust_map, i)
+                ))
+                mask_p.append(mask)
+                ys = y_prog[i]
+                y_lik.append(gaussian_forward((ys - mu) * mask, scale * mask)[1])
+                y0 = torch.round(ys - mu) * mask + mu
+                prog_slices.append(self._prog_finish(i, ms, y0, y_hat_base[i]))
+            y_hat, mu_p, std_p, mask_p = (cat(t) for t in (prog_slices, mu_p, std_p, mask_p))
+        return {"x_hat": self.codec_synth(1, y_hat),
+                "likelihoods": {"y": cat(y_lik), "z": z_lik},
+                "y_hat": y_hat, "mu": mu_p, "std": std_p, "mask": mask_p,
+                "mu_base": cat(mu_base), "std_base": cat(std_base)}
+
+    # ------------------------------------------------------------------
     # enhancement and synthesis fragments: channel-last in and out
     # ------------------------------------------------------------------
 
-    def codec_prog_stacked(self, quality: float, mask_pol, lm, ls, y_hat_base,
-                           scale_table, cust_map=None):
-        """-> (mu, scale, mask, keep, idx, mean_support, base_stack), each
-        (S, B, h, w, *) channel-last."""
+    def _prog_stacked(self, quality: float, mask_pol, lm, ls, y_hat_base, cust_map=None):
+        """-> (mu, scale, mask, mean_support, base_stack), each (S, B, h, w, *)
+        channel-last."""
         mu, scale, ms, base_stack = self._prog_params_stacked(
             nchw(lm), nchw(ls), [nchw(y) for y in y_hat_base]
         )
@@ -254,14 +353,28 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
             dim_chunk=self.cfg.dim_chunk, division_channel=self.cfg.division_channel,
             cust_map=self._map_stack(cust_map),
         )
+        return mu, scale, mask, ms, base_stack
+
+    def codec_prog_stacked(self, quality: float, mask_pol, lm, ls, y_hat_base,
+                           scale_table, cust_map=None):
+        """-> (mu, scale, mask, keep, idx, mean_support, base_stack), each
+        (S, B, h, w, *) channel-last."""
+        mu, scale, mask, ms, base_stack = self._prog_stacked(
+            quality, mask_pol, lm, ls, y_hat_base, cust_map
+        )
         keep = torch.round(mask) > 0.5
         idx = build_indexes(scale, scale_table, 0.11)
         return mu, scale, mask, keep, idx, ms, base_stack
 
     def codec_prog_recon_stacked(self, ms, mu, vals, keep, base_stack):
-        cfg = self.cfg
         zero = torch.zeros((), dtype=torch.float32, device=mu.device)
         y0 = torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu
+        return self._prog_finish_stacked(ms, y0, base_stack)
+
+    def _prog_finish_stacked(self, ms, y0, base_stack):
+        """The stacked enhancement's LRP and residual join, given y0 = the
+        dequantised slices plus their means."""
+        cfg = self.cfg
         if cfg.residual_before_lrp:
             y0 = y0 + base_stack
         lrp_in = torch.cat([ms, y0], dim=-1)
@@ -280,11 +393,9 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         index or keep decision -> (mu, scale, mut, mask, keep, idx,
         mean_support), channel-last.  `checkpoint_slice` anchors the
         refinement hook in place of the base slice when given."""
-        mu, scale, mut, ms = self._prog_slice(
-            i, nchw(lm), nchw(ls), *([nchw(t) for t in ts] for ts in
-                                     (y_hat_base, mu_total, std_total, prog_slices))
+        mu, scale, mut, ms = self._prog_slice_nhwc(
+            i, lm, ls, y_hat_base, mu_total, std_total, prog_slices
         )
-        mu, scale, mut, ms = nhwc(mu), nhwc(scale), nhwc(mut), nhwc(ms)
         anchor = checkpoint_slice if checkpoint_slice is not None else y_hat_base[i]
         mu, scale = self._refine_prog_params(i, quality, mu, scale, mu_b_i, std_b_i, anchor, mask_pol)
         mask = self._mask_for(scale, quality, mask_pol, i, y_hat_base[i], cust_map_slice)
@@ -294,9 +405,15 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
 
     def codec_prog_recon(self, i: int, ms, mu, vals, keep, y_b_i):
         """Reconstruction of unrolled enhancement slice i, merged into its base."""
-        cfg = self.cfg
         zero = torch.zeros((), dtype=torch.float32, device=mu.device)
-        y0 = nchw(torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu)
+        y0 = torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu
+        return self._prog_finish(i, ms, y0, y_b_i)
+
+    def _prog_finish(self, i: int, ms, y0, y_b_i):
+        """Unrolled slice i's LRP and join into its base, given y0 = the
+        dequantised slice plus its means (channel-last)."""
+        cfg = self.cfg
+        y0 = nchw(y0)
         base = nchw(y_b_i)
         if cfg.residual_before_lrp:
             y0 = self._merge(y0, base, i)
@@ -309,6 +426,13 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
     def codec_synth(self, which: int, y_hat):
         x_hat = self._apply_refine(self._synth_net(which)(nchw(y_hat)), which)
         return nhwc(torch.clamp(x_hat, 0.0, 1.0))
+
+    def _map_slice(self, cust_map, i: int):
+        """Slice i's channels of an importance map, or None."""
+        if cust_map is None:
+            return None
+        dc = self.cfg.dim_chunk
+        return cust_map[..., i * dc : (i + 1) * dc]
 
     def _map_stack(self, cust_map):
         if cust_map is None:

@@ -6,9 +6,11 @@ from progressivecodec_tpu_torch.config import ModelConfig
 
 
 def get_model(cfg: ModelConfig, device=None):
-    """WACNN for "cnn", ChannelProgressiveWACNN for "channel", on `device`
-    (default `cuda`)."""
+    """WACNN for "cnn", ChannelProgressiveWACNN for "channel" and its REM
+    subclass PostRateProcessedNetwork for "rate", on `device` (default
+    `cuda`)."""
     from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
+    from progressivecodec_tpu_torch.models.rem import PostRateProcessedNetwork
     from progressivecodec_tpu_torch.models.wacnn import WACNN
 
     if cfg.name == "cnn":
@@ -16,7 +18,5 @@ def get_model(cfg: ModelConfig, device=None):
     if cfg.name == "channel":
         return ChannelProgressiveWACNN(cfg, device=device)
     if cfg.name == "rate":
-        raise NotImplementedError(
-            "REM (name='rate') comes with the next slice of the port (models/rem.py)"
-        )
+        return PostRateProcessedNetwork(cfg, device=device)
     raise KeyError(f"unknown model {cfg.name!r} (have: cnn, channel, rate)")

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from progressivecodec_tpu_torch.entropy.gaussian import build_indexes
+from progressivecodec_tpu_torch.entropy.gaussian import build_indexes, gaussian_forward
 
 from progressivecodec_tpu_torch.layers.blocks import (
     GDN,
@@ -122,6 +122,29 @@ class ChARMFragments:
     def _base_lrp(self, i: int, mean_support, y_hat_slice):
         lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
         return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
+
+    def _forward_base(self, y, n_split: int, n_base: int):
+        """Eval forward of the hyperprior and the first `n_base` ChARM slices
+        of y (B, h, w, C) split into `n_split`: rounding around the medians
+        and the means, then the likelihoods.  Channel-last ->
+        (lm, ls, z_lik, y_slices, y_hat, y_lik, mu, scale); the last four
+        are lists over the base slices."""
+        z = self.h_a(nchw(y))
+        _, z_lik = self.entropy_bottleneck(nhwc(z))
+        med = self.entropy_bottleneck.medians().reshape(1, -1, 1, 1)
+        lm, ls = self._hyper_params(torch.round(z - med) + med)
+        y_slices = torch.split(y, y.shape[-1] // n_split, dim=-1)
+        y_hat, y_lik, mus, scales = [], [], [], []
+        for i in range(n_base):
+            mu, scale, ms = self._base_slice(i, lm, ls, y_hat)
+            ys = nchw(y_slices[i])
+            y_lik.append(nhwc(gaussian_forward(ys, scale, mu)[1]))
+            y_hat_slice = torch.round(ys - mu) + mu
+            y_hat.append(y_hat_slice + self._base_lrp(i, ms, y_hat_slice))
+            mus.append(nhwc(mu))
+            scales.append(nhwc(scale))
+        return (nhwc(lm), nhwc(ls), z_lik, y_slices, [nhwc(t) for t in y_hat], y_lik,
+                mus, scales)
 
     def codec_hyper_enc(self, y):
         return nhwc(self.h_a(nchw(y)))

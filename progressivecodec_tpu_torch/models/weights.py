@@ -3,12 +3,14 @@ state dict, and a seeded initialiser that mirrors the JAX initialisers.
 
 `from_jax_params` is the port's own copy of the mappings in
 `progressivecodec_tpu/models/torch_import.py` (`export_progressive`,
-`export_wacnn`) for ChannelProgressiveWACNN, stacked or unrolled, with
-joiners, learnable masks and u_net_post refinement, and for WACNN:
+`export_wacnn`, `export_rem`) for ChannelProgressiveWACNN, stacked or
+unrolled, with joiners, learnable masks and u_net_post refinement, for
+WACNN, and for REM (the base tree under `base_net.`, the
+LatentRateReduction banks under `post_latent.{k}.{i}.`):
 
   conv kernel     HWIO        -> OIHW   (transpose 3, 2, 0, 1)
   deconv kernel   HWIO        -> IOHW   (transpose 2, 3, 0, 1)
-  linear kernel   (in, out)   -> (out, in)
+  linear kernel   (in, out)   -> (out, in)   (REM's zero_out Dense too)
   stacked enhancement bank    -> one ConvStack5 per slice
   GDN, bottleneck, rel-pos tables   copied
 
@@ -29,6 +31,7 @@ from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from progressivecodec_tpu_torch.layers.blocks import GDN, WindowAttention
 from progressivecodec_tpu_torch.models.progressive import uses_stacked_prog
 from progressivecodec_tpu_torch.models.registry import get_model
+from progressivecodec_tpu_torch.models.rem import reference_name
 from progressivecodec_tpu_torch.ops.math import nonneg_init
 
 F32 = torch.float32
@@ -111,6 +114,22 @@ def from_jax_params(params_np: dict, cfg: ModelConfig) -> dict:
         for i in range(n):
             put_stack5(f"{prefix}{i}.", node[f"s{i}"])
 
+    def put_lrr(prefix, node):  # REM LatentRateReduction
+        def put_rb(rb_prefix, rb):
+            put_conv(f"{rb_prefix}conv1.", rb["conv1"])
+            put_conv(f"{rb_prefix}conv2.", rb["conv2"])
+            if "skip" in rb:
+                put_conv(f"{rb_prefix}skip.", rb["skip"])
+
+        for ref, name in (("enc_base_entropy_params", "base_ent"), ("enc_enh_entropy_params", "enh_ent"),
+                          ("enc_base_rep", "base_rep"), ("enc", "enc")):
+            j = 0
+            while f"{name}{j}" in node:
+                put_rb(f"{prefix}{ref}.{j}.", node[f"{name}{j}"])
+                j += 1
+        sd[f"{prefix}zero_out.weight"] = _t(np.transpose(node["zero_out"]["kernel"]))
+        sd[f"{prefix}zero_out.bias"] = _t(node["zero_out"]["bias"])
+
     def put_cbr(prefix, node):  # UNet ConvBlockResidual
         put_conv(f"{prefix}conv.0.", node["conv1"])
         put_conv(f"{prefix}conv.2.", node["conv2"])
@@ -186,6 +205,11 @@ def from_jax_params(params_np: dict, cfg: ModelConfig) -> dict:
         if i < 4:
             sd[f"entropy_bottleneck._factor{i}"] = _t(eb[f"factor{i}"])
     sd["entropy_bottleneck.quantiles"] = _t(eb["quantiles"])
+    if cfg.name == "rate":
+        sd = {reference_name(k): v for k, v in sd.items()}
+        for k in range(len(cfg.check_levels)):
+            for i in range(cfg.ns0):  # as many banks per level as rem.py builds
+                put_lrr(f"post_latent.{k}.{i}.", p[f"post_latent{k}_{i}"])
     return sd
 
 
@@ -195,8 +219,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     the JAX initialisers draw:
     Kaiming-normal fan_out convs and deconvs with zero biases, GDN beta = 1
     and gamma = 0.1 I in reparam space, lecun-normal (truncated) attention
-    linears, truncated-normal(0.02) relative-position tables, and the
-    bottleneck's own init.  The numbers differ from JAX's for the same seed."""
+    linears, truncated-normal(0.02) relative-position tables, the
+    bottleneck's own init, and zeros for REM's `zero_out` projections (each
+    bank starts as the identity).  Names are the model's `state_dict()`
+    names.  The numbers differ from JAX's for the same seed."""
     skeleton = get_model(cfg, device="meta")
     sd: dict = {}
 
@@ -217,6 +243,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
             _, o, kh, kw = mod.weight.shape
             sd[p + "weight"] = normal(mod.weight.shape, math.sqrt(2.0 / (kh * kw * o)))
             sd[p + "bias"] = torch.zeros(mod.bias.shape, dtype=F32)
+        elif isinstance(mod, nn.Linear) and name.endswith("zero_out"):
+            sd[p + "weight"] = torch.zeros(mod.weight.shape, dtype=F32)
+            sd[p + "bias"] = torch.zeros(mod.bias.shape, dtype=F32)
         elif isinstance(mod, nn.Linear):
             fan_in = mod.weight.shape[1]
             sd[p + "weight"] = trunc(mod.weight.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978)
@@ -234,4 +263,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
             eb = EntropyBottleneck(mod.channels, mod.tail_mass, mod.init_scale, device="cpu")
             eb.reset_parameters(generator)
             sd.update({p + k: v for k, v in eb.state_dict().items()})
+    if cfg.name == "rate":
+        sd = {reference_name(k): v for k, v in sd.items()}
     return sd

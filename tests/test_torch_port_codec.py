@@ -32,7 +32,6 @@ from progressivecodec_tpu_torch.coder import rans_device
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec, make_codec
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
-from progressivecodec_tpu_torch.models.registry import get_model
 from progressivecodec_tpu_torch.models.weights import from_jax_params, init_params
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -249,17 +248,22 @@ def test_entry_points_raise_without_card(setup):
         make_codec(codec.model)
 
 
-@pytest.mark.parametrize("what", ["coder_mesh", "rate", "other_model"])
+@pytest.mark.parametrize("what", ["coder_mesh", "training_forward", "eval_checkpoint",
+                                  "other_model"])
 def test_unported_options_raise(setup, what):
     """What the port still refuses: mesh-sharded coding (the parallel/
-    slice), REM (name="rate", the next slice), and a model of no family
-    the codec serves."""
+    slice), the training forward and loading a trained checkpoint (the
+    training slice), and a model of no family the codec serves."""
     codec, _ = setup
     with pytest.raises(NotImplementedError):
         if what == "coder_mesh":
             GranularCodec(codec.model, groups=2, coder_mesh=object(), device="cpu")
-        elif what == "rate":
-            get_model(ModelConfig(**{**TINY_KW, "name": "rate"}), device="cpu")
+        elif what == "training_forward":
+            codec.model.forward_single_quality(torch.from_numpy(_image(1)), 5.0, training=True)
+        elif what == "eval_checkpoint":
+            from progressivecodec_tpu_torch.cli import eval as eval_cli
+
+            eval_cli.main(["--checkpoint", "runs/exp1/ckpt_best", "--synthetic", "--device", "cpu"])
         else:
             GranularCodec(torch.nn.Linear(2, 2), device="cpu")
 
