@@ -49,9 +49,26 @@ printing a result:
      (real bpp < estimated bpp * 1.25 + 0.3, JAX's own bound), with the
      launches of every round trip counted, then
      `cli.eval.main(["--synthetic", "--max-images", "1", "--qualities",
-     "0,10"])` in this process.
+     "0,10"])` in this process;
+  7. training: `cli.train.main` on the flagship ModelConfig() at
+     TrainConfig() defaults (batch 16, patch 256, lr 1e-4, aux_lr 1e-3)
+     with --synthetic --epochs 2 --steps-per-epoch 4 --eval-every 1, then a
+     resume from ckpt_last to --epochs 3 (epoch 2, steps 8 -> 12), in a
+     temporary directory: every logged loss finite, each epoch's
+     train_loss, valid, test and real_codec records, no eval_error, and
+     the encode and decode kernels launched during every real-codec eval
+     (6 and 70 per epoch); `cli.eval.main(["--checkpoint", ckpt_last,
+     "--synthetic", "--max-images", "2", "--qualities", "0,1,10"])` must
+     give the trainer's last real bpp at every quality; one step split by
+     CUDA events into forward, backward and optimisers; and one
+     `make_train_step` on the card against the same step on the CPU (full
+     width, batch 2, 128x128, the same weights and the same noise drawn on
+     the CPU): loss and aux loss within rtol 1e-4, every gradient within
+     ||dg|| / ||g|| <= 1e-3.  It prints ms per step, images/s, peak device
+     memory, checkpoint bytes and save seconds.
 The last line is {"ok": true, "device": {...}}; the line before it is the
-`kernels` JSON object.
+`kernels` JSON object, whose encode and decode entries carry
+`train_eval_launches`, the launches of phase 7's real-codec evals.
 """
 
 from __future__ import annotations
@@ -723,6 +740,252 @@ def check_eval(codec, n_images=2, qualities=(0.0, 5.0, 10.0)):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+
+def _records(out):
+    with open(f"{out}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _dir_bytes(path) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def check_training(dev, smi):
+    """Phase 7: `cli.train` on the flagship ModelConfig() at TrainConfig()
+    defaults (batch 16, patch 256), 2 epochs of 4 steps, then a resume to
+    epoch 3, then `cli.eval --checkpoint` on its last checkpoint, then one
+    step on the card against the same step on the CPU.  Returns the encode
+    and decode launches counted during the trainer's real-codec evals."""
+    import os
+    import shutil
+    import tempfile
+
+    from progressivecodec_tpu_torch.cli import eval as eval_cli
+    from progressivecodec_tpu_torch.cli import train as train_cli
+    from progressivecodec_tpu_torch.config import ModelConfig, TrainConfig
+    from progressivecodec_tpu_torch.training import checkpoint
+
+    step_ms, eval_launches, saves = [], [], []
+    make_step, evaluate, save = (train_cli.make_train_step, train_cli.evaluate_codec,
+                                 train_cli.save_checkpoint)
+
+    def timed_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        return timed
+
+    def counted_eval(*a, **kw):
+        zero_launches()
+        out = evaluate(*a, **kw)
+        eval_launches.append(read_launches())
+        return out
+
+    def timed_save(path, *a, **kw):
+        t0 = time.perf_counter()
+        save(path, *a, **kw)
+        saves.append((time.perf_counter() - t0, _dir_bytes(path)))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = os.path.join(tmp, "run")
+    last = os.path.join(out, "ckpt_last")
+    train_cli.make_train_step, train_cli.evaluate_codec, train_cli.save_checkpoint = (
+        timed_make_step, counted_eval, timed_save)
+    try:
+        args = ["--synthetic", "--steps-per-epoch", "4", "--eval-every", "1", "--out", out]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main(args + ["--epochs", "2"])
+        t1 = time.perf_counter()
+        payload, meta = checkpoint.read_checkpoint(last)
+        require(payload["step"] == 8 and meta["extra"]["epoch"] == 1,
+                f"ckpt_last after 2 epochs: step {payload['step']}, epoch {meta['extra']['epoch']}")
+        del payload
+        n_first = len(_records(out))
+        train_cli.main(args + ["--epochs", "3", "--checkpoint", last])
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        recs = _records(out)
+        resumed = recs[n_first:]
+        require(min(r["epoch"] for r in resumed) == 2, "the resumed run did not start at epoch 2")
+        steps = {r["epoch"]: r["step"] for r in recs if "step" in r}
+        require(steps == {0: 4, 1: 8, 2: 12}, f"steps per epoch {steps}, want 4, 8, 12")
+        errors = [r for r in recs if "eval_error" in r]
+        require(not errors, f"eval errors: {errors}")
+        for key in ("train_loss", "valid", "test", "real_codec"):
+            got = sorted(r["epoch"] for r in recs if key in r)
+            require(got == [0, 1, 2], f"{key} records at epochs {got}")
+        losses = [r["train_loss"] for r in recs if "train_loss" in r]
+        losses += [r["valid"]["loss"] for r in recs if "valid" in r]
+        require(bool(np.isfinite(losses).all()), f"a logged loss is not finite: {losses}")
+        cfg = ModelConfig()
+        want = (6, 2 * sum(1 + cfg.ns0 + (q > 0) for q in (0.0, 1.0, 10.0)), 0)
+        require(len(eval_launches) == 3 and all(n == want for n in eval_launches),
+                f"real-codec eval launches {eval_launches}, want {want} per epoch")
+        real = [r["real_codec"] for r in recs if "real_codec" in r]
+        for r in recs:
+            if "train_loss" in r or "real_codec" in r:
+                log(f"  {json.dumps(r)[:400]}")
+
+        t3 = time.perf_counter()
+        result = eval_cli.main(["--checkpoint", last, "--synthetic", "--max-images", "2",
+                                "--qualities", "0,1,10"])
+        t4 = time.perf_counter()
+        require(result["real_codec"]["bpp"] == real[-1]["bpp"],
+                f"cli.eval --checkpoint bpp {result['real_codec']['bpp']} != the trainer's "
+                f"last {real[-1]['bpp']}")
+    finally:
+        train_cli.make_train_step, train_cli.evaluate_codec, train_cli.save_checkpoint = (
+            make_step, evaluate, save)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    later = step_ms[1:8] + step_ms[9:]  # each run's first step warms up
+    med = float(np.median(later))
+    tcfg = TrainConfig()
+    log(f"  train: {len(step_ms)} steps, ms per step {[round(t, 1) for t in step_ms]}; median "
+        f"after each run's first {med:.1f} ms, {tcfg.batch_size / med * 1e3:.2f} images/s "
+        f"(batch {tcfg.batch_size}, {tcfg.patch_size}x{tcfg.patch_size})")
+    log(f"  train: run 1 (2 epochs) {t1 - t0:.1f} s, resume (1 epoch) {t2 - t1:.1f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"  checkpoints: {len(saves)} saves, {saves[0][1]} bytes each, save s "
+        f"{[round(t, 2) for t, _ in saves]}")
+    log(f"  real-codec eval launches per epoch (encode, decode, grouped): {eval_launches}")
+    log(f"  cli.eval --checkpoint: real bpp {result['real_codec']['bpp']} = the trainer's last, "
+        f"{t4 - t3:.1f} s")
+    split_step(dev)
+    card_vs_cpu(dev)
+    log(f"  phase 7 on {smi}")
+    return tuple(sum(n[i] for n in eval_launches) for i in range(2))
+
+
+def split_step(dev, batch=16, patch=256):
+    """One train step of the flagship at TrainConfig() sizes, split by CUDA
+    events into forward + loss, backward, the main gradients' clip, the
+    main Adam and the aux Adam (the parts of `Optimizers.step`, called one
+    by one); then one more step with every convolution's forward and
+    backward timed by CUDA events from module hooks, summed by kind
+    (Conv2d, ConvTranspose2d).  Returns the split in ms."""
+    import torch.nn as nn
+
+    from progressivecodec_tpu_torch.config import ModelConfig, TrainConfig
+    from progressivecodec_tpu_torch.ops.noise import NoiseSource
+    from progressivecodec_tpu_torch.training.optim import clip_by_global_norm_
+    from progressivecodec_tpu_torch.training.step import init_train_state, train_loss
+
+    state = init_train_state(seeded_model(ModelConfig(), dev), TrainConfig())
+    opt = state.opt
+    x = torch.rand((batch, patch, patch, 3), generator=torch.Generator().manual_seed(SEED + 6),
+                   dtype=torch.float32)
+    x = x.to(dev)
+    noise = NoiseSource.seeded(SEED + 6, dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+
+    def step():
+        opt.zero_grad()
+        ev[0].record()
+        total, _ = train_loss(state.model, x, (0, 10), noise=noise)
+        ev[1].record()
+        total.backward()
+        ev[2].record()
+        clip_by_global_norm_(opt.main_params, opt.clip_max_norm)
+        ev[3].record()
+        opt.main.step()
+        ev[4].record()
+        opt.aux.step()
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    step()
+    split = dict(zip(("forward", "backward", "clip", "main_adam", "aux_adam"), step()))
+    log(f"  step split (CUDA events, batch {batch}, {patch}x{patch}, {len(opt.main_params)} main "
+        f"tensors): " + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f", total {sum(split.values()):.1f} ms")
+
+    starts, spans, handles = {}, [], []
+
+    def hook(kind, phase, at_start):
+        def fn(m, *_):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            if at_start:
+                starts[(id(m), phase)] = e
+            else:
+                spans.append((kind, phase, starts.pop((id(m), phase)), e))
+        return fn
+
+    for m in state.model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            kind = "ConvTranspose2d" if isinstance(m, nn.ConvTranspose2d) else "Conv2d"
+            handles += [m.register_forward_pre_hook(hook(kind, "forward", True)),
+                        m.register_forward_hook(hook(kind, "forward", False)),
+                        m.register_full_backward_pre_hook(hook(kind, "backward", True)),
+                        m.register_full_backward_hook(hook(kind, "backward", False))]
+    try:
+        step()
+    finally:
+        for h in handles:
+            h.remove()
+    sums: dict = {}
+    for kind, phase, a, b in spans:
+        sums[(kind, phase)] = sums.get((kind, phase), 0.0) + a.elapsed_time(b)
+    log("  convolutions in one step (CUDA events from module hooks): " + ", ".join(
+        f"{kind} {phase} {ms:.1f} ms" for (kind, phase), ms in sorted(sums.items())))
+    return split
+
+
+def card_vs_cpu(dev, batch=2, patch=128):
+    """One `make_train_step` of the flagship on the card and on the CPU, same
+    weights, batch and noise (drawn on the CPU): loss and aux loss within
+    rtol 1e-4, every gradient within ||dg|| / ||g|| <= 1e-3."""
+    from progressivecodec_tpu_torch.config import ModelConfig, TrainConfig
+    from progressivecodec_tpu_torch.ops.noise import NoiseSource
+    from progressivecodec_tpu_torch.training.step import init_train_state, make_train_step
+
+    cfg = ModelConfig()
+    x = torch.rand((batch, patch, patch, 3), generator=torch.Generator().manual_seed(SEED + 7),
+                   dtype=torch.float32)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        state = init_train_state(seeded_model(cfg, where), TrainConfig())
+        t0 = time.perf_counter()
+        _, metrics = make_train_step()(state, x.to(where), NoiseSource.seeded(SEED + 7, "cpu"))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grads = {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()}
+        runs.append(({k: float(v) for k, v in metrics.items()}, grads, secs))
+        del state
+    (m_gpu, g_gpu, s_gpu), (m_cpu, g_cpu, s_cpu) = runs
+    for k in ("loss", "aux_loss", "loss_total"):
+        require(abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * abs(m_cpu[k]),
+                f"card vs CPU {k}: {m_gpu[k]} vs {m_cpu[k]}")
+    worst, worst_name = 0.0, ""
+    for n, g in g_cpu.items():
+        ref = float(g.norm())
+        rel = float((g_gpu[n] - g).norm()) / ref if ref > 0 else float(g_gpu[n].norm())
+        if rel > worst:
+            worst, worst_name = rel, n
+    require(worst <= 1e-3, f"card vs CPU gradient {worst_name}: ||dg|| / ||g|| = {worst}")
+    log(f"  card vs CPU, one step (batch {batch}, {patch}x{patch}): loss {m_gpu['loss']:.6g} vs "
+        f"{m_cpu['loss']:.6g}, aux {m_gpu['aux_loss']:.6g} vs {m_cpu['aux_loss']:.6g}; worst "
+        f"gradient ||dg||/||g|| {worst:.3g} ({worst_name}) over {len(g_cpu)} tensors; card "
+        f"{s_gpu:.2f} s, CPU {s_cpu:.2f} s")
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -818,15 +1081,20 @@ def main() -> int:
     del codec, model
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    log("phase 7: training the flagship ModelConfig() at TrainConfig() defaults")
+    train_enc, train_dec = check_training(dev, smi)
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
              replaces="progressivecodec_tpu/coder/rans_pallas.py:117",
-             launches=main_counts["enc"], library_ms=None, **results["rans_encode_scan"]),
+             launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
+             **results["rans_encode_scan"]),
         dict(name="rans_decode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
-             launches=main_counts["dec"], library_ms=None, **results["rans_decode_scan"]),
+             launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
+             **results["rans_decode_scan"]),
         dict(name="rans_decode_scan_grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",

@@ -1,8 +1,8 @@
-"""Typed configuration for the model and the coder.
+"""Typed configuration for the model, the coder and training.
 
 A field-for-field copy of `progressivecodec_tpu/config.py` (ModelConfig,
-ScaleTableConfig, CoderConfig) with the same JSON, so either package reads
-the other's configuration files.
+ScaleTableConfig, CoderConfig, TrainConfig) with the same JSON, so either
+package reads the other's configuration files.
 """
 
 from __future__ import annotations
@@ -97,6 +97,34 @@ class CoderConfig:
     tail_mass: float = 1e-9
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training protocol defaults.  The mesh axes (data-parallel x
+    spatial-tile) must be 1: the port trains on one device."""
+
+    batch_size: int = 16
+    patch_size: int = 256
+    epochs: int = 150
+    lr: float = 1e-4
+    aux_lr: float = 1e-3
+    clip_max_norm: float = 1.0
+    lr_factor: float = 0.3
+    lr_patience: int = 8
+    seed: int = 42
+    sampling_training: bool = False
+    num_images: int = 300_000
+    num_images_val: int = 816
+    mesh_data: int = 1
+    mesh_tile: int = 1
+
+    def __post_init__(self):
+        if self.mesh_data != 1 or self.mesh_tile != 1:
+            raise NotImplementedError(
+                f"mesh_data={self.mesh_data}, mesh_tile={self.mesh_tile}: training on a "
+                "device mesh comes with the parallel/ slice of the port"
+            )
+
+
 def to_json(cfg: Any) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=2)
 
@@ -117,3 +145,7 @@ def _from_dict(cls, d: dict):
 
 def model_config_from_json(s: str) -> ModelConfig:
     return _from_dict(ModelConfig, json.loads(s))
+
+
+def train_config_from_json(s: str) -> TrainConfig:
+    return _from_dict(TrainConfig, json.loads(s))

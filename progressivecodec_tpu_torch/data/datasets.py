@@ -1,19 +1,22 @@
-"""Evaluation datasets: image folders, Kodak, and seeded synthetic images.
+"""Datasets: image folders, Kodak, seeded synthetic images, and the
+random-crop patch loader of training.
 
-Counterpart of the evaluation part of `progressivecodec_tpu/data/datasets.py`
-(`load_image`, `ImageFolderDataset`, `KodakDataset`, `SyntheticKodak`,
-`SyntheticDataset`, and `NaturalSyntheticDataset.generate` as
-`natural_image`).  Each item is an HWC float32 numpy array in [0, 1]; the
-synthetic sets are generated from their seeds with numpy, so they equal the
+Counterpart of `progressivecodec_tpu/data/datasets.py` (`load_image`,
+`ImageFolderDataset` with its image cap and host striping, `KodakDataset`,
+`random_crop`, `PatchLoader`, `NaturalSyntheticDataset` with its uint8
+cache, `SyntheticKodak`, `SyntheticDataset`; `ImportanceMapDataset` is not
+ported yet).  Each item is an HWC float32 numpy array in [0, 1]; the
+synthetic sets are generated from their seeds with numpy, and the loader
+draws its crops as JAX's does, so with one worker its batches equal the
 JAX package's exactly.  PIL is imported only when an image file is read.
-The training loaders (`PatchLoader`, `ImportanceMapDataset`, the
-`NaturalSyntheticDataset` patch set) and the folder's training options
-(an image cap, sharding across hosts) come with the training slice.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
+from typing import Iterator
 
 import numpy as np
 
@@ -34,15 +37,20 @@ def _list_images(root: str) -> list[str]:
 
 class ImageFolderDataset:
     """The images of `root/split/data` (or `root/split`, or `root`), sorted
-    by name."""
+    by name, the first `num_images` of them, striped across hosts: host h of
+    H takes files[h::H]."""
 
-    def __init__(self, root: str, split: str = "train"):
+    def __init__(self, root: str, split: str = "train", num_images: int | None = None,
+                 host_index: int = 0, host_count: int = 1):
         base = os.path.join(root, split, "data")
         if not os.path.isdir(base):
             base = os.path.join(root, split)
         if not os.path.isdir(base):
             base = root
-        self.files = _list_images(base)
+        files = _list_images(base)
+        if num_images:
+            files = files[:num_images]
+        self.files = files[host_index::host_count]
 
     def __len__(self):
         return len(self.files)
@@ -56,6 +64,86 @@ class KodakDataset(ImageFolderDataset):
         super().__init__(root, split="")
         if not self.files:
             raise FileNotFoundError(f"no images under {root}")
+
+
+def random_crop(img: np.ndarray, size: int, rng: np.random.Generator) -> np.ndarray:
+    """A random size x size crop; smaller images are reflect-padded first."""
+    h, w = img.shape[:2]
+    if h < size or w < size:
+        img = np.pad(img, ((0, max(0, size - h)), (0, max(0, size - w)), (0, 0)), mode="reflect")
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - size + 1))
+    left = int(rng.integers(0, w - size + 1))
+    return img[top : top + size, left : left + size]
+
+
+class PatchLoader:
+    """Random-crop batches (B, size, size, 3) with background prefetch.
+
+    Each epoch takes a permutation of the dataset from seed + epoch and
+    cuts it into whole batches; `workers` threads build the batches, worker
+    w drawing its crops from seed * 7919 + epoch * 131 + w, and the batches
+    are served in order."""
+
+    def __init__(self, dataset, batch_size: int, patch_size: int, seed: int = 0,
+                 prefetch: int = 4, workers: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.patch_size = patch_size
+        self.seed = seed
+        self.prefetch = prefetch
+        self.workers = workers
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[np.ndarray]:
+        order = np.random.default_rng(self.seed + epoch_idx).permutation(len(self.dataset))
+        n_batches = len(order) // self.batch_size
+        ahead = max(self.prefetch, 1)
+        tasks: queue.Queue = queue.Queue()
+        for b in range(n_batches):
+            tasks.put((b, order[b * self.batch_size : (b + 1) * self.batch_size]))
+        results: dict[int, np.ndarray] = {}
+        ready = threading.Condition()
+        served = 0
+
+        def worker(wid: int):
+            rng = np.random.default_rng(self.seed * 7919 + epoch_idx * 131 + wid)
+            while True:
+                try:
+                    b, ids = tasks.get_nowait()
+                except queue.Empty:
+                    return
+                batch = np.stack([random_crop(self.dataset[int(i)], self.patch_size, rng)
+                                  for i in ids])
+                with ready:  # at most `prefetch` batches ahead of the consumer
+                    ready.wait_for(lambda: b < served + ahead)
+                    results[b] = batch
+                    ready.notify_all()
+
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(self.workers)]
+        for t in threads:
+            t.start()
+        try:
+            while served < n_batches:
+                with ready:
+                    ready.wait_for(lambda: served in results)
+                    batch = results.pop(served)
+                    served += 1
+                    ready.notify_all()
+                yield batch
+        finally:
+            # a consumer that stops early: drop the batches not started and
+            # release the workers waiting on the prefetch bound
+            while True:
+                try:
+                    tasks.get_nowait()
+                except queue.Empty:
+                    break
+            with ready:
+                served = n_batches + ahead
+                ready.notify_all()
+            for t in threads:
+                t.join()
 
 
 def _pink_field(rng: np.random.Generator, h: int, w: int, alpha: float) -> np.ndarray:
@@ -109,6 +197,30 @@ def natural_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
         img = img * (1 - 0.85 * cover) + (color + grad) * cover * 0.85
     img += rng.uniform(0.3, 0.7)  # brightness
     return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+class NaturalSyntheticDataset:
+    """`n` seeded `size` x `size` images with natural-image statistics
+    (`natural_image`), each generated from seed * 100003 + its index.  With
+    `cache`, the first read of an index returns the generated float image
+    and keeps a uint8 copy, and later reads return that copy as float."""
+
+    def __init__(self, n: int = 4000, size: int = 384, seed: int = 0, cache: bool = True):
+        self.n = n
+        self.size = size
+        self.seed = seed
+        self._cache: dict[int, np.ndarray] | None = {} if cache else None
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        if self._cache is not None and i in self._cache:
+            return self._cache[i].astype(np.float32) / 255.0
+        img = natural_image(np.random.default_rng(self.seed * 100003 + i), self.size, self.size)
+        if self._cache is not None:
+            self._cache[i] = (img * 255.0 + 0.5).astype(np.uint8)
+        return img
 
 
 class SyntheticKodak:

@@ -1,10 +1,10 @@
 """Factorized-prior entropy bottleneck for the z latent: parameters, medians,
-the eval likelihood forward and the host-side CDF table builder.
+the likelihood forward (noise-quantised in training, rounded at eval),
+`aux_loss` and the host-side CDF table builder.
 
 Counterpart of `progressivecodec_tpu/entropy/bottleneck.py`.  Parameter
 names follow the reference (`_matrix{i}`, `_bias{i}`, `_factor{i}`,
-`quantiles`).  The noise-quantised training forward and `aux_loss` belong
-to the training slice and are not here yet.
+`quantiles`).
 """
 
 from __future__ import annotations
@@ -69,15 +69,20 @@ class EntropyBottleneck(nn.Module):
         """(C,) per-channel median used to round z."""
         return self.quantiles[:, 0, 1]
 
-    def _logits_cumulative(self, values: torch.Tensor) -> torch.Tensor:
+    def _logits_cumulative(self, values: torch.Tensor, stop_gradient: bool = False) -> torch.Tensor:
         """values (C, 1, N) -> logits (C, 1, N): per stage, softplus(matrix)
-        @ logits + bias, then logits += tanh(factor) * tanh(logits)."""
+        @ logits + bias, then logits += tanh(factor) * tanh(logits).  With
+        `stop_gradient` the MLP's parameters take no gradient (aux_loss)."""
+        def param(name):
+            p = getattr(self, name)
+            return p.detach() if stop_gradient else p
+
         logits = values
         for i in range(len(_FILTERS) + 1):
-            logits = torch.matmul(F.softplus(getattr(self, f"_matrix{i}")), logits)
-            logits = logits + getattr(self, f"_bias{i}")
+            logits = torch.matmul(F.softplus(param(f"_matrix{i}")), logits)
+            logits = logits + param(f"_bias{i}")
             if i < len(_FILTERS):
-                logits = logits + torch.tanh(getattr(self, f"_factor{i}")) * torch.tanh(logits)
+                logits = logits + torch.tanh(param(f"_factor{i}")) * torch.tanh(logits)
         return logits
 
     def _likelihood(self, values: torch.Tensor) -> torch.Tensor:
@@ -87,21 +92,32 @@ class EntropyBottleneck(nn.Module):
         sign = -torch.sign(lower + upper).detach()
         return torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
 
-    def forward(self, x: torch.Tensor, *, training: bool = False):
-        """x (B, H, W, C) -> (outputs, likelihoods), both (B, H, W, C): at
-        eval, x rounded around the medians and its bounded likelihood."""
-        if training:
-            raise NotImplementedError(
-                "the noise-quantised training forward comes with the training slice of the port"
-            )
+    def forward(self, x: torch.Tensor, *, training: bool = False, noise=None):
+        """x (B, H, W, C) -> (outputs, likelihoods), both (B, H, W, C): in
+        training x plus U(-0.5, 0.5) drawn from `noise` as (C, 1, B*H*W), at
+        eval x rounded around the medians; then the bounded likelihood."""
         b, h, w, c = x.shape
         values = x.to(F32).permute(3, 0, 1, 2).reshape(c, 1, -1)
-        med = self.medians().reshape(c, 1, 1)
-        outputs = torch.round(values - med) + med
+        if training:
+            if noise is None:
+                raise ValueError("training=True requires a noise source")
+            outputs = values + noise.uniform(values.shape, values.device)
+        else:
+            med = self.medians().reshape(c, 1, 1)
+            outputs = torch.round(values - med) + med
         likelihood = lower_bound(self._likelihood(outputs), LIKELIHOOD_BOUND)
         outputs = outputs.reshape(c, b, h, w).permute(1, 2, 3, 0)
         likelihood = likelihood.reshape(c, b, h, w).permute(1, 2, 3, 0)
         return outputs.to(x.dtype), likelihood
+
+    def aux_loss(self) -> torch.Tensor:
+        """Quantile fit to the tail mass: |logits(quantiles) - (-t, 0, t)|
+        summed, t = log(2 / tail_mass - 1); only `quantiles` gets its
+        gradient."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = float(np.log(2.0 / self.tail_mass - 1.0))
+        target = torch.tensor([-t, 0.0, t], dtype=F32, device=logits.device)
+        return torch.abs(logits - target).sum()
 
     def host_params(self) -> dict:
         """numpy copy keyed like the JAX tree (matrix0, bias0, ..., quantiles)."""

@@ -2,8 +2,8 @@
 host tables.
 
 Counterpart of `progressivecodec_tpu/entropy/gaussian.py`
-(`gaussian_likelihood`, the eval branch of `gaussian_forward`,
-`build_indexes`, `build_gaussian_tables`).  Scale math stays float32 so the
+(`gaussian_likelihood`, `gaussian_forward`, `build_indexes`,
+`build_gaussian_tables`).  Scale math stays float32 so the
 encoder and the decoder derive the same index from the same sigma bits.
 """
 
@@ -40,14 +40,20 @@ def gaussian_likelihood(inputs: torch.Tensor, scales: torch.Tensor,
 
 
 def gaussian_forward(inputs: torch.Tensor, scales: torch.Tensor,
-                     means: torch.Tensor | None = None, *, training: bool = False):
-    """(outputs, likelihood) at eval: round around the means (or round),
-    then the likelihood of the rounded values."""
+                     means: torch.Tensor | None = None, *, training: bool = False,
+                     noise=None):
+    """(outputs, likelihood): in training the inputs plus U(-0.5, 0.5) drawn
+    from `noise` (`ops/noise.py`) in the inputs' shape, at eval the inputs
+    rounded around the means (or rounded); then the likelihood of the
+    outputs."""
     if training:
-        raise NotImplementedError(
-            "the noise-quantised training forward comes with the training slice of the port"
-        )
-    outputs = torch.round(inputs) if means is None else torch.round(inputs - means) + means
+        if noise is None:
+            raise ValueError("training=True requires a noise source")
+        outputs = inputs + noise.uniform(inputs.shape, inputs.device)
+    elif means is None:
+        outputs = torch.round(inputs)
+    else:
+        outputs = torch.round(inputs - means) + means
     return outputs, gaussian_likelihood(outputs, scales, means)
 
 

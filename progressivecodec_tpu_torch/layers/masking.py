@@ -2,8 +2,7 @@
 
 Counterpart of `progressivecodec_tpu/layers/masking.py` for the policies
 the codec reaches: point-based-std, two-levels, three-levels-std,
-scalable_res and an importance map (`cust_map`), and the eval form of
-`apply_mask_noise`.
+scalable_res and an importance map (`cust_map`), and `apply_mask_noise`.
 
 The decoder recomputes the mask from sigma alone, so the mask must be a
 bit-exact function of sigma.  `quantile_mask` therefore reproduces
@@ -16,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from progressivecodec_tpu_torch.ops.math import ste_round
 
 F32 = torch.float32
 
@@ -145,8 +146,5 @@ def stacked_channel_mask(scale_stack: torch.Tensor, *, pr: float,
 
 
 def apply_mask_noise(mask: torch.Tensor, training: bool = False) -> torch.Tensor:
-    """A hard round at eval; the straight-through round of training comes
-    with the training slice of the port."""
-    if training:
-        raise NotImplementedError("the training mask comes with the training slice of the port")
-    return torch.round(mask)
+    """A straight-through round in training, a hard round at eval."""
+    return ste_round(mask) if training else torch.round(mask)

@@ -2,7 +2,8 @@
 
 Counterpart of `progressivecodec_tpu/models/codec.py`.  `update()` builds
 the CDF tables on the host from the model's bottleneck parameters, once
-per codec.  The container keeps the PCT2 layout but carries the port's own
+per codec; the codec holds the live model, so after the weights change
+`update(force=True)` rebuilds them.  The container keeps the PCT2 layout but carries the port's own
 magic: sigma bits depend on the implementation, so a stream made by the
 JAX package is not expected to decode here and is refused at deserialize
 instead of desyncing.
@@ -52,9 +53,12 @@ class Codec:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def update(self):
-        """Build the merged CDF tables (bottleneck rows, then Gaussian rows), once."""
-        if self._tables is not None:
+    def update(self, force: bool = False):
+        """Build the merged CDF tables (bottleneck rows, then Gaussian rows):
+        once, or again with `force`.  The codec holds the live model, so
+        after its weights change, call this with `force` or build a new
+        codec."""
+        if self._tables is not None and not force:
             return self._tables
         bt = build_bottleneck_tables(self.model.entropy_bottleneck.host_params(), PRECISION)
         gt = build_gaussian_tables(self.cfg.scale_table.values(), precision=PRECISION)

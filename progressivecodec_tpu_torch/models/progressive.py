@@ -15,9 +15,13 @@ Two enhancement paths, as in JAX:
     slices (or their means and scales, `all_scalable`), joined into the
     base by a residual or a joiner net, masked by sigma or a learnable map.
 
-`forward_single_quality` is the eval forward at one quality, with the
-likelihoods.  `_refine_prog_params` is the hook REM (`models/rem.py`)
-overrides; `checkpoint_rep` anchors it in place of the base slices.
+`forward` is the multi-quality training forward (JAX's `__call__`):
+noise-quantised likelihoods, the noise drawn from an explicit source
+(`ops/noise.py`) in JAX's order, and straight-through rounding.
+`forward_single_quality` is the forward at one quality, with the
+likelihoods (eval, or training with noise).  `_refine_prog_params` is the
+hook REM (`models/rem.py`) overrides; `checkpoint_rep` anchors it in place
+of the base slices.
 
 Internals are NCHW `nn.Module`s.  The public methods (`analyze`,
 `forward_single_quality` and the `codec_*` fragments the granular codec
@@ -52,6 +56,7 @@ from progressivecodec_tpu_torch.models.transforms import (
     nchw,
     nhwc,
 )
+from progressivecodec_tpu_torch.ops.math import ste_round
 
 
 def uses_stacked_prog(cfg: ModelConfig) -> bool:
@@ -234,7 +239,8 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         )
         return nhwc(mu), nhwc(scale), nhwc(mut), nhwc(ms)
 
-    def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol):
+    def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol,
+                            training: bool = False):
         """Hook for REM-style (mu, scale) refinement of enhancement slices;
         the identity here."""
         return mu, scale
@@ -248,10 +254,11 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         dc = self.cfg.dim_chunk
         return checkpoint_rep[..., i * dc : (i + 1) * dc]
 
-    def _mask_for(self, scale, pr, mask_pol, i, y_base_slice, cust_map=None):
+    def _mask_for(self, scale, pr, mask_pol, i, y_base_slice, cust_map=None,
+                  training: bool = False):
         """Channel-last mask of enhancement slice i: the learnable levels
-        (pr 0 none, 2 all, else the rounded conv importance map) or a sigma
-        policy of `layers/masking.py`."""
+        (pr 0 none, 2 all, else the conv importance map, rounded straight
+        through in training) or a sigma policy of `layers/masking.py`."""
         cfg = self.cfg
         if mask_pol is not None and "learnable" in mask_pol:
             if pr == 0:
@@ -259,32 +266,76 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
             if pr == 2:
                 return torch.ones_like(scale)
             inp = torch.cat([scale, y_base_slice], dim=-1) if cfg.double_dim else scale
-            return torch.round(nhwc(self.masking.mask_conv[i](nchw(inp))))
+            rnd = ste_round if training else torch.round
+            return rnd(nhwc(self.masking.mask_conv[i](nchw(inp))))
         return channel_mask(
             scale, pr=pr, mask_pol=mask_pol, slice_index=i, dim_chunk=cfg.dim_chunk,
             division_channel=cfg.division_channel, cust_map=cust_map,
         )
 
     # ------------------------------------------------------------------
-    # single-quality eval forward
+    # training forward: every quality of the ladder in one pass
+    # ------------------------------------------------------------------
+
+    def forward(self, x, quality=None, mask_pol=None, *, training: bool = True, noise=None,
+                checkpoint_rep=None, cust_map=None) -> dict:
+        """Multi-quality forward, JAX's `__call__`: x (B, H, W, 3) at the
+        qualities `quality` (default 0..scalable_levels-1; 0 is put first
+        when missing) -> {"x_hat" (L, B, H, W, 3), not clipped,
+        "likelihoods": {"y" (base), "y_prog" (L-1, B, h, w, base + enh),
+        "z"}, "y_base", "y_prog" (the last quality's enhancement)},
+        channel-last.  In training the latents are noise-quantised for the
+        likelihoods, with U(-0.5, 0.5) drawn from `noise` (`ops/noise.py`):
+        z, the base slices, then per quality the stacked enhancement at once
+        or its slices in turn; the reconstructions round straight through."""
+        cfg = self.cfg
+        mask_pol = mask_pol or cfg.mask_policy
+        qualities = list(quality) if quality is not None else list(range(cfg.scalable_levels))
+        if not qualities or qualities[0] != 0:
+            qualities = [0] + qualities
+        if training and noise is None:
+            raise ValueError("the training forward needs a noise source")
+        lm, ls, z_lik, y_slices, y_hat_base, y_lik_base, mu_base, std_base = self._forward_base(
+            self.analyze(x), cfg.ns1, cfg.ns0, training=training, noise=noise
+        )
+        y_hat_b = torch.cat(y_hat_base, dim=-1)
+        x_hats = [self._synthesize(0, y_hat_b)]
+        y_lik_prog, y_hat_enh = [], y_hat_b
+        for q in qualities[1:]:
+            enh = self._enhancement(q, mask_pol, lm, ls, y_slices, y_hat_base, mu_base, std_base,
+                                    training, noise, checkpoint_rep, cust_map,
+                                    mask_ste=training and "learnable" in mask_pol)
+            y_hat_enh = enh["y_hat"]
+            x_hats.append(self._synthesize(1, y_hat_enh))
+            # a quality's stream codes the base and the enhancement
+            y_lik_prog.append(torch.cat(y_lik_base + [enh["lik"]], dim=-1)[None])
+        y_lik_b = torch.cat(y_lik_base, dim=-1)
+        return {"x_hat": torch.stack(x_hats),
+                "likelihoods": {"y": y_lik_b,
+                                "y_prog": torch.cat(y_lik_prog) if y_lik_prog
+                                else torch.ones_like(y_lik_b),
+                                "z": z_lik},
+                "y_base": y_hat_b, "y_prog": y_hat_enh}
+
+    # ------------------------------------------------------------------
+    # single-quality forward
     # ------------------------------------------------------------------
 
     def forward_single_quality(self, x, quality: float, mask_pol=None, *, training: bool = False,
-                               checkpoint_rep=None, cust_map=None) -> dict:
-        """Eval forward at one quality: x (B, H, W, 3) -> {"x_hat",
+                               noise=None, checkpoint_rep=None, cust_map=None) -> dict:
+        """Forward at one quality: x (B, H, W, 3) -> {"x_hat",
         "likelihoods": {"y", "z"}, "y_hat", "mu", "std"}, and at quality > 0
         also "mask", "mu_base" and "std_base" (mu and std are the
-        enhancement's before refinement); channel-last.  Latents are
-        rounded around their means and x_hat is clipped to [0, 1]."""
-        if training:
-            raise NotImplementedError(
-                "the training forward (noise, losses, backward) comes with the training "
-                "slice of the port"
-            )
+        enhancement's before refinement); channel-last, x_hat clipped to
+        [0, 1].  Latents are rounded around their means; in training the
+        likelihoods are of the noisy latents, each draw taken from `noise`
+        in turn (JAX passes one key to every draw)."""
+        if training and noise is None:
+            raise ValueError("the training forward needs a noise source")
         cfg = self.cfg
         mask_pol = mask_pol or cfg.mask_policy
         lm, ls, z_lik, y_slices, y_hat_base, y_lik, mu_base, std_base = self._forward_base(
-            self.analyze(x), cfg.ns1, cfg.ns0
+            self.analyze(x), cfg.ns1, cfg.ns0, training=training, noise=noise
         )
         cat = lambda ts: torch.cat(ts, dim=-1)  # noqa: E731
         if quality == 0:
@@ -292,7 +343,20 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
             return {"x_hat": self.codec_synth(0, y_hat),
                     "likelihoods": {"y": cat(y_lik), "z": z_lik},
                     "y_hat": y_hat, "mu": cat(mu_base), "std": cat(std_base)}
+        enh = self._enhancement(quality, mask_pol, lm, ls, y_slices, y_hat_base, mu_base,
+                                std_base, training, noise, checkpoint_rep, cust_map)
+        return {"x_hat": self.codec_synth(1, enh["y_hat"]),
+                "likelihoods": {"y": cat(y_lik + [enh["lik"]]), "z": z_lik},
+                "y_hat": enh["y_hat"], "mu": enh["mu"], "std": enh["std"], "mask": enh["mask"],
+                "mu_base": cat(mu_base), "std_base": cat(std_base)}
 
+    def _enhancement(self, quality, mask_pol, lm, ls, y_slices, y_hat_base, mu_base, std_base,
+                     training, noise, checkpoint_rep, cust_map, mask_ste=False) -> dict:
+        """The enhancement layer at one quality > 0, channel-last -> {"y_hat"
+        (merged into the base), "lik", "mu", "std" (before refinement),
+        "mask"}.  `mask_ste` rounds the mask straight through."""
+        cfg = self.cfg
+        rnd = ste_round if training else torch.round
         y_prog = [y_slices[cfg.ns0 + i] - y_slices[i] if cfg.delta_encode else y_slices[cfg.ns0 + i]
                   for i in range(cfg.num_prog_slices)]
         if self.stacked:
@@ -301,39 +365,39 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
                 quality, mask_pol, lm, ls, y_hat_base, cust_map
             )
             mask = apply_mask_noise(mask)
-            _, lik = gaussian_forward((y_st - mu) * mask, scale * mask)
-            y_lik.append(unstack_channels(lik))
-            y0 = torch.round(y_st - mu) * mask + mu
+            _, lik = gaussian_forward((y_st - mu) * mask, scale * mask,
+                                      training=training, noise=noise)
+            y0 = rnd(y_st - mu) * mask + mu
             y_hat = unstack_channels(self._prog_finish_stacked(ms, y0, base_stack))
-            mu_p, std_p, mask_p = (unstack_channels(t) for t in (mu, scale, mask))
-        else:
-            prog_slices, mu_total, std_total = [], [], []
-            mu_p, std_p, mask_p = [], [], []
-            for i in range(cfg.num_prog_slices):
-                mu, scale, mut, ms = self._prog_slice_nhwc(
-                    i, lm, ls, y_hat_base, mu_total, std_total, prog_slices
-                )
-                std_total.append(scale if cfg.support_std else mut)
-                mu_total.append(mut)
-                mu_p.append(mu)
-                std_p.append(scale)
-                mu, scale = self._refine_prog_params(
-                    i, quality, mu, scale, mu_base[i], std_base[i],
-                    self._hook_anchor(i, y_hat_base, checkpoint_rep), mask_pol,
-                )
-                mask = apply_mask_noise(self._mask_for(
-                    scale, quality, mask_pol, i, y_hat_base[i], self._map_slice(cust_map, i)
-                ))
-                mask_p.append(mask)
-                ys = y_prog[i]
-                y_lik.append(gaussian_forward((ys - mu) * mask, scale * mask)[1])
-                y0 = torch.round(ys - mu) * mask + mu
-                prog_slices.append(self._prog_finish(i, ms, y0, y_hat_base[i]))
-            y_hat, mu_p, std_p, mask_p = (cat(t) for t in (prog_slices, mu_p, std_p, mask_p))
-        return {"x_hat": self.codec_synth(1, y_hat),
-                "likelihoods": {"y": cat(y_lik), "z": z_lik},
-                "y_hat": y_hat, "mu": mu_p, "std": std_p, "mask": mask_p,
-                "mu_base": cat(mu_base), "std_base": cat(std_base)}
+            return {"y_hat": y_hat, "lik": unstack_channels(lik), "mu": unstack_channels(mu),
+                    "std": unstack_channels(scale), "mask": unstack_channels(mask)}
+        prog_slices, mu_total, std_total = [], [], []
+        liks, mu_p, std_p, mask_p = [], [], [], []
+        for i in range(cfg.num_prog_slices):
+            mu, scale, mut, ms = self._prog_slice_nhwc(
+                i, lm, ls, y_hat_base, mu_total, std_total, prog_slices
+            )
+            std_total.append(scale if cfg.support_std else mut)
+            mu_total.append(mut)
+            mu_p.append(mu)
+            std_p.append(scale)
+            mu, scale = self._refine_prog_params(
+                i, quality, mu, scale, mu_base[i], std_base[i],
+                self._hook_anchor(i, y_hat_base, checkpoint_rep), mask_pol, training=training,
+            )
+            mask = apply_mask_noise(self._mask_for(
+                scale, quality, mask_pol, i, y_hat_base[i], self._map_slice(cust_map, i),
+                training=training,
+            ), mask_ste)
+            mask_p.append(mask)
+            ys = y_prog[i]
+            liks.append(gaussian_forward((ys - mu) * mask, scale * mask,
+                                         training=training, noise=noise)[1])
+            y0 = rnd(ys - mu) * mask + mu
+            prog_slices.append(self._prog_finish(i, ms, y0, y_hat_base[i]))
+        cat = lambda ts: torch.cat(ts, dim=-1)  # noqa: E731
+        return {"y_hat": cat(prog_slices), "lik": cat(liks), "mu": cat(mu_p), "std": cat(std_p),
+                "mask": cat(mask_p)}
 
     # ------------------------------------------------------------------
     # enhancement and synthesis fragments: channel-last in and out
@@ -423,9 +487,12 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
             y0 = self._merge(y0, base, i)
         return nhwc(y0)
 
+    def _synthesize(self, which: int, y_hat):
+        """Synthesis `which` and its refinement, channel-last, not clipped."""
+        return nhwc(self._apply_refine(self._synth_net(which)(nchw(y_hat)), which))
+
     def codec_synth(self, which: int, y_hat):
-        x_hat = self._apply_refine(self._synth_net(which)(nchw(y_hat)), which)
-        return nhwc(torch.clamp(x_hat, 0.0, 1.0))
+        return torch.clamp(self._synthesize(which, y_hat), 0.0, 1.0)
 
     def _map_slice(self, cust_map, i: int):
         """Slice i's channels of an importance map, or None."""

@@ -6,7 +6,7 @@ between the checkpoint qualities `cfg.check_levels` (default 0.01, 0.25,
 1.75) a bank refines the predicted sigma of an enhancement slice, gated by
 the attention mask mask(q) - mask(q_bar), where q_bar is the checkpoint
 below q.  It overrides the progressive model's `_refine_prog_params` hook,
-so the eval forward and the codec fragments are inherited; the model is
+so the forwards and the codec fragments are inherited; the model is
 always unrolled (`uses_stacked_prog` is False for "rate").
 
 The escalation cascade codes one stream per checkpoint below the target
@@ -162,16 +162,17 @@ class PostRateProcessedNetwork(ChannelProgressiveWACNN):
         bounds = list(cfg.check_levels) + [10.0]
         return [0.0] + [(a + b) / 2 for a, b in zip(bounds, bounds[1:])]
 
-    def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol):
+    def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol,
+                            training: bool = False):
         cfg = self.cfg
         if _f32(quality) <= _f32(cfg.check_levels[0]):
             return mu, scale
         q_bar, _ = find_check_quality(quality, cfg.check_levels)
         mk = dict(mask_pol=mask_pol or "point-based-std", slice_index=i,
                   dim_chunk=cfg.dim_chunk, division_channel=cfg.division_channel)
-        # the attention mask ranks the unrefined sigma
+        # the attention mask ranks the unrefined sigma; straight through in training
         att = apply_mask_noise(channel_mask(scale, pr=quality, **mk)
-                               - channel_mask(scale, pr=q_bar, **mk))
+                               - channel_mask(scale, pr=q_bar, **mk), training)
         if self.mu_std:
             att = torch.cat([att, att], dim=-1)
         params_base = torch.cat([mu_b, scale_b], dim=-1)

@@ -12,7 +12,6 @@ import torch
 import torch.nn as nn
 
 from progressivecodec_tpu_torch.entropy.gaussian import build_indexes, gaussian_forward
-
 from progressivecodec_tpu_torch.layers.blocks import (
     GDN,
     Conv,
@@ -21,6 +20,7 @@ from progressivecodec_tpu_torch.layers.blocks import (
     SubpelConv,
     WinNoShiftAttention,
 )
+from progressivecodec_tpu_torch.ops.math import ste_round
 
 
 class AnalysisTransform(nn.Sequential):
@@ -123,26 +123,30 @@ class ChARMFragments:
         lrp_support = torch.cat([mean_support, y_hat_slice], dim=1)
         return 0.5 * torch.tanh(self.lrp_transforms[i](lrp_support))
 
-    def _forward_base(self, y, n_split: int, n_base: int):
-        """Eval forward of the hyperprior and the first `n_base` ChARM slices
-        of y (B, h, w, C) split into `n_split`: rounding around the medians
-        and the means, then the likelihoods.  Channel-last ->
-        (lm, ls, z_lik, y_slices, y_hat, y_lik, mu, scale); the last four
-        are lists over the base slices."""
+    def _forward_base(self, y, n_split: int, n_base: int, training: bool = False, noise=None):
+        """Forward of the hyperprior and the first `n_base` ChARM slices of y
+        (B, h, w, C) split into `n_split`: rounding around the medians and
+        the means (straight through in training), then the likelihoods, of
+        the noisy latents in training, drawn from `noise` z first.
+        Channel-last -> (lm, ls, z_lik, y_slices, y_hat, y_lik, mu, scale);
+        the last four are lists over the base slices."""
+        rnd = ste_round if training else torch.round
         z = self.h_a(nchw(y))
-        _, z_lik = self.entropy_bottleneck(nhwc(z))
+        _, z_lik = self.entropy_bottleneck(nhwc(z), training=training, noise=noise)
         med = self.entropy_bottleneck.medians().reshape(1, -1, 1, 1)
-        lm, ls = self._hyper_params(torch.round(z - med) + med)
+        lm, ls = self._hyper_params(rnd(z - med) + med)
         y_slices = torch.split(y, y.shape[-1] // n_split, dim=-1)
         y_hat, y_lik, mus, scales = [], [], [], []
         for i in range(n_base):
             mu, scale, ms = self._base_slice(i, lm, ls, y_hat)
-            ys = nchw(y_slices[i])
-            y_lik.append(nhwc(gaussian_forward(ys, scale, mu)[1]))
-            y_hat_slice = torch.round(ys - mu) + mu
+            mu_l, scale_l = nhwc(mu), nhwc(scale)
+            # channel-last, where the training noise is drawn as JAX draws it
+            y_lik.append(gaussian_forward(y_slices[i], scale_l, mu_l,
+                                          training=training, noise=noise)[1])
+            y_hat_slice = rnd(nchw(y_slices[i]) - mu) + mu
             y_hat.append(y_hat_slice + self._base_lrp(i, ms, y_hat_slice))
-            mus.append(nhwc(mu))
-            scales.append(nhwc(scale))
+            mus.append(mu_l)
+            scales.append(scale_l)
         return (nhwc(lm), nhwc(ls), z_lik, y_slices, [nhwc(t) for t in y_hat], y_lik,
                 mus, scales)
 

@@ -3,8 +3,8 @@
 Counterpart of `progressivecodec_tpu/models/wacnn.py`: the same transforms
 and ChARM slice recursion as the progressive model's base layer, over all
 M // dim_chunk slices of an M-channel latent, with one synthesis, and the
-eval forward with the likelihoods.  Module names follow the reference's
-tree, so its state dict loads with `strict=True`.
+forward with the likelihoods, noise-quantised in training.  Module names
+follow the reference's tree, so its state dict loads with `strict=True`.
 """
 
 from __future__ import annotations
@@ -53,27 +53,26 @@ class WACNN(ChARMFragments, nn.Module):
     def _hyper_params(self, z_hat: torch.Tensor):
         return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
 
-    def forward(self, x, *, training: bool = False) -> dict:
-        """Eval forward: x (B, H, W, 3) -> {"x_hat", "likelihoods": {"y", "z"},
-        "y_hat"}, channel-last, latents rounded around their means; x_hat is
-        not clipped."""
-        if training:
-            raise NotImplementedError(
-                "the training forward (noise, losses, backward) comes with the training "
-                "slice of the port"
-            )
+    def forward(self, x, *, training: bool = False, noise=None) -> dict:
+        """x (B, H, W, 3) -> {"x_hat", "likelihoods": {"y", "z"}, "y_hat"},
+        channel-last, latents rounded around their means (straight through
+        in training); x_hat is not clipped.  In training the likelihoods
+        are of the noisy latents, drawn from `noise`: z, then each slice
+        (JAX splits 2 + num_slices keys and never draws from its key 1)."""
+        if training and noise is None:
+            raise ValueError("the training forward needs a noise source")
         _, _, z_lik, _, y_hat, y_lik, _, _ = self._forward_base(
-            self.analyze(x), self.num_slices, self.num_slices
+            self.analyze(x), self.num_slices, self.num_slices, training=training, noise=noise
         )
         y_hat = torch.cat(y_hat, dim=-1)
         return {"x_hat": nhwc(self.g_s(nchw(y_hat))),
                 "likelihoods": {"y": torch.cat(y_lik, dim=-1), "z": z_lik}, "y_hat": y_hat}
 
     def forward_single_quality(self, x, quality: float = 0.0, mask_pol=None, *,
-                               training: bool = False) -> dict:
-        """The eval forward with x_hat clipped to [0, 1]; a single-rate model,
+                               training: bool = False, noise=None) -> dict:
+        """The forward with x_hat clipped to [0, 1]; a single-rate model,
         so the quality is ignored."""
-        out = self.forward(x, training=training)
+        out = self.forward(x, training=training, noise=noise)
         out["x_hat"] = torch.clamp(out["x_hat"], 0.0, 1.0)
         return out
 

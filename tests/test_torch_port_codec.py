@@ -248,22 +248,27 @@ def test_entry_points_raise_without_card(setup):
         make_codec(codec.model)
 
 
-@pytest.mark.parametrize("what", ["coder_mesh", "training_forward", "eval_checkpoint",
+@pytest.mark.parametrize("what", ["coder_mesh", "train_mesh", "eval_checkpoint",
                                   "other_model"])
-def test_unported_options_raise(setup, what):
-    """What the port still refuses: mesh-sharded coding (the parallel/
-    slice), the training forward and loading a trained checkpoint (the
-    training slice), and a model of no family the codec serves."""
+def test_unported_options_raise(setup, what, tmp_path):
+    """What the port still refuses: mesh-sharded coding and training on a
+    device mesh (the parallel/ slice), loading a checkpoint of the JAX
+    package (an Orbax directory), and a model of no family the codec
+    serves."""
     codec, _ = setup
     with pytest.raises(NotImplementedError):
         if what == "coder_mesh":
             GranularCodec(codec.model, groups=2, coder_mesh=object(), device="cpu")
-        elif what == "training_forward":
-            codec.model.forward_single_quality(torch.from_numpy(_image(1)), 5.0, training=True)
+        elif what == "train_mesh":
+            from progressivecodec_tpu_torch.config import TrainConfig
+
+            TrainConfig(mesh_data=2)
         elif what == "eval_checkpoint":
             from progressivecodec_tpu_torch.cli import eval as eval_cli
 
-            eval_cli.main(["--checkpoint", "runs/exp1/ckpt_best", "--synthetic", "--device", "cpu"])
+            (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")
+            (tmp_path / "config.json").write_text('{"model": {}, "train": {}, "extra": {}}')
+            eval_cli.main(["--checkpoint", str(tmp_path), "--synthetic", "--device", "cpu"])
         else:
             GranularCodec(torch.nn.Linear(2, 2), device="cpu")
 

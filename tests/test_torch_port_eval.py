@@ -12,8 +12,9 @@
     tests/test_torch_port_forward.py);
   * `cli.eval.main([... "--device", "cpu", "--synthetic"])` writes its
     JSON, with the real bpp inside JAX's own bound of the estimate (real <
-    est * 1.25 + 0.3, tests/test_cli.py); --checkpoint is refused in
-    tests/test_torch_port_codec.py.
+    est * 1.25 + 0.3, tests/test_cli.py); --checkpoint on a checkpoint of
+    the port's trainer is in tests/test_torch_port_train_cli.py, and on one
+    of the JAX package it is refused in tests/test_torch_port_codec.py.
 """
 
 import json

@@ -14,7 +14,8 @@ likelihoods it needs.
     ~115 (the CLI default at q=10), and float32 noise ~2.6e-4;
   * `entropy_estimate_eval` on the stacked model at q in {0, 10}: bpp
     within 1% of JAX's, PSNR within 0.01 dB, the lambda loss within 1%;
-  * the eval forward refuses training=True.
+  * training=True without a noise source is refused (the training
+    forward is held to JAX's in tests/test_torch_port_train_step.py).
 JAX runs eagerly (see tests/test_torch_port_rem.py).
 """
 
@@ -106,7 +107,7 @@ def test_gaussian_likelihood_matches_jax():
                                             None if m is None else jnp.asarray(m), training=False)
         np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
         np.testing.assert_allclose(lik.numpy(), np.asarray(j_lik), rtol=1e-3, atol=0)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="training=True requires a noise source"):
         gaussian_forward(torch.from_numpy(x), torch.from_numpy(scales), training=True)
 
 
@@ -126,7 +127,7 @@ def test_bottleneck_forward_matches_jax():
                                                     training=False)
     np.testing.assert_array_equal(out.numpy(), np.asarray(j_out))
     np.testing.assert_allclose(lik.numpy(), np.asarray(j_lik), rtol=1e-3, atol=0)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="training=True requires a noise source"):
         eb(torch.from_numpy(z), training=True)
 
 
@@ -155,8 +156,9 @@ def test_forward_single_quality_matches_jax(model_pair, q):
 
 
 def test_forward_single_quality_refuses_training(model_pair):
+    """Training without a noise source is refused."""
     model, _, _ = model_pair
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs a noise source"):
         model.forward_single_quality(torch.from_numpy(image(22)), 5, training=True)
 
 
