@@ -65,10 +65,28 @@ printing a result:
      width, batch 2, 128x128, the same weights and the same noise drawn on
      the CPU): loss and aux loss within rtol 1e-4, every gradient within
      ||dg|| / ||g|| <= 1e-3.  It prints ms per step, images/s, peak device
-     memory, checkpoint bytes and save seconds.
+     memory, checkpoint bytes and save seconds;
+  8. importance masks, rd_sweep and profiling, on the flagship with seeded
+     weights and the 768x512 image of phase 4: `importance_map` (finite,
+     >= 0, not all zero, CUDA-event ms; the same map at 256x256 on the card
+     and on the CPU, ||d||/||m|| <= 1e-3, with the count of elements whose
+     snapped sigma differs); `init_mask_estractor` (N=320) and 10 steps of
+     `make_mask_train_step` at lr 1e-4 against `importance_target`, every
+     loss finite and the last below the first; `predict_cust_map`, then a
+     round trip at q=5 with that map on both sides (stream_ok, bit-exact
+     y_hat, 1 encode and 12 decode launches, keep flags unlike the
+     sigma-ranked codec's); `ImportanceMapDataset` over SyntheticKodak(n=2)
+     at patch 256; `cli.rd_sweep.main(["--synthetic-kodak", "--image", "0",
+     "--grid", "coarse", "--device", "cuda", ...])` in this process (12
+     qualities, bpp non-decreasing, 12 encode and 143 decode launches);
+     `PhaseTimer` spans around each; a `device_trace` of one q=10 round
+     trip that must name both rANS kernels; `count_flops` of
+     `forward_single_quality` at q=10 and the MFU of its CUDA-event-timed
+     run against the card's float32 peak, which must lie in (0, 1).
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
-`train_eval_launches`, the launches of phase 7's real-codec evals.
+`train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
+(phase 8's map-ranked round trip) and `rd_sweep_launches`.
 """
 
 from __future__ import annotations
@@ -562,14 +580,15 @@ def read_launches():
             rans_cuda.rans_decode_scan_grouped.launches)
 
 
-def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
-    """One checked round trip; the launch counts are zeroed just before it
-    and read just after it.  Returns the counts, the escape words and y_hat."""
+def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None):
+    """One checked round trip (an importance map `cust_map` on both sides
+    when given); the launch counts are zeroed just before it and read just
+    after it.  Returns the counts, the escape words, y_hat and the bytes."""
     zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if latent is None:
-        data = codec.compress(x, quality=q, simulate=True)
+        data = codec.compress(x, quality=q, simulate=True, cust_map=cust_map)
     else:
         data = codec.compress_from_latent(latent, x.shape, quality=q, simulate=True)
     torch.cuda.synchronize()
@@ -578,7 +597,7 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
     back = codec.deserialize(blob)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    out = codec.decompress(back)
+    out = codec.decompress(back, cust_map=cust_map)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     enc_n, dec_n, grp_n = read_launches()
@@ -607,7 +626,8 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None):
     log(f"  {label}: {len(blob)} bytes ({bpp:.4f} bpp), {n_esc // 2} escapes, "
         f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, launches encode={enc_n} "
         f"decode={dec_n} grouped decode={grp_n}, stream_ok, y_hat bit-exact")
-    return {"enc": enc_n, "dec": dec_n, "grouped": grp_n, "esc": n_esc, "y_hat": out["y_hat"]}
+    return {"enc": enc_n, "dec": dec_n, "grouped": grp_n, "esc": n_esc, "y_hat": out["y_hat"],
+            "bytes": len(blob), "encode_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t3 - t2)}
 
 
 def kept_and_blob(codec, x, q):
@@ -986,6 +1006,206 @@ def card_vs_cpu(dev, batch=2, patch=128):
         f"{s_gpu:.2f} s, CPU {s_cpu:.2f} s")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+
+def stacked_keep(model, fn):
+    """(fn's result, the keep flags of every stacked enhancement stage fn
+    runs: the encoder's, then the decoder's)."""
+    kept = []
+    orig = model.codec_prog_stacked
+
+    def spy(*args):
+        out = orig(*args)
+        kept.append(out[3])
+        return out
+
+    model.codec_prog_stacked = spy
+    try:
+        result = fn()
+    finally:
+        del model.codec_prog_stacked
+    return result, kept
+
+
+def device_busy_ms(trace: dict):
+    """(ms during which the card ran a kernel, copy or fill, the number of
+    such events) in a Chrome trace from torch.profiler: the union of their
+    intervals."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+                   if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def snap_differences(model_a, xa, model_b, xb, table, q_eps=1e-6) -> int:
+    """Elements whose snapped sigma differs between two models' forwards
+    (base and minimal enhancement), as importance_map snaps them."""
+    from progressivecodec_tpu_torch.layers.importance import snap_to_scale_table
+
+    n = 0
+    with torch.no_grad():
+        for q in (0.0, q_eps):
+            a = model_a.forward_single_quality(xa, q, "point-based-std")["std"]
+            b = model_b.forward_single_quality(xb, q, "point-based-std")["std"]
+            n += int((snap_to_scale_table(a, table).cpu() != snap_to_scale_table(b, table).cpu()).sum())
+    return n
+
+
+def check_importance(dev, x1, smi):
+    """Phase 8: the importance map, the MaskEstractor and its trainer, a
+    round trip ranked by the predicted map, ImportanceMapDataset,
+    `cli.rd_sweep`, and the profiling tools: PhaseTimer spans around each,
+    a torch.profiler trace of one round trip, the forward's FLOPs and MFU.
+    Returns the launches of the map-ranked round trip and of rd_sweep."""
+    import os
+    import tempfile
+
+    from progressivecodec_tpu_torch.cli import rd_sweep
+    from progressivecodec_tpu_torch.config import ModelConfig
+    from progressivecodec_tpu_torch.data.datasets import ImportanceMapDataset, SyntheticKodak
+    from progressivecodec_tpu_torch.layers.importance import importance_map
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.models.registry import get_model
+    from progressivecodec_tpu_torch.ops.noise import NoiseSource
+    from progressivecodec_tpu_torch.training.mask_trainer import (
+        importance_target, init_mask_estractor, make_mask_train_step, mask_features,
+        predict_cust_map,
+    )
+    from progressivecodec_tpu_torch.utils.flops import chip_peak_flops, flops_by_kind, mfu
+    from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, PhaseTimer, device_trace
+
+    cfg = ModelConfig()
+    table = cfg.scale_table.values()
+    timer = PhaseTimer()
+    model = seeded_model(cfg, dev)
+    b, h, w = 1, H // 16, W // 16
+
+    with timer.phase("importance_map 768x512", sync=x1):
+        imap = importance_map(model, x1, NoiseSource.seeded(SEED + 8), table)
+    require(tuple(imap.shape) == (b, h, w, cfg.division_channel), f"importance map {tuple(imap.shape)}")
+    require(bool(torch.isfinite(imap).all()) and bool((imap >= 0).all()) and float(imap.max()) > 0,
+            "importance map: not finite, negative or all zero")
+    imap_ms = cuda_time_ms(lambda: importance_map(model, x1, NoiseSource.seeded(SEED + 8), table), 3)
+    require(all(p.grad is None for p in model.parameters()),
+            "importance_map gave a model parameter a gradient")
+
+    with timer.phase("importance_map card vs CPU 256x256"):
+        cpu_model = get_model(cfg, device="cpu")
+        cpu_model.load_state_dict(model.state_dict(), strict=True)
+        x256 = x1[:, :256, :256].contiguous()
+        m_card = importance_map(model, x256, NoiseSource.seeded(SEED + 9), table).cpu()
+        m_cpu = importance_map(cpu_model, x256.cpu(), NoiseSource.seeded(SEED + 9), table)
+        rel = float(torch.linalg.vector_norm(m_card - m_cpu) / torch.linalg.vector_norm(m_cpu))
+        n_snap = snap_differences(model, x256, cpu_model, x256.cpu(), table)
+        del cpu_model
+    log(f"  importance map (1, {h}, {w}, {cfg.division_channel}): {imap_ms:.2f} ms (CUDA events), "
+        f"max {float(imap.max()):.4g}; card vs CPU at 256x256: ||d||/||m|| = {rel:.3g}, snapped "
+        f"sigma differ at {n_snap} of {2 * 16 * 16 * cfg.division_channel} elements")
+    require(rel <= 1e-3, f"importance map card vs CPU {rel} > 1e-3")
+
+    with timer.phase("MaskEstractor 10 steps", sync=x1):
+        feats = mask_features(model, x1)
+        target = importance_target(model, x1, NoiseSource.seeded(SEED + 10), table)
+        est = init_mask_estractor(torch.Generator().manual_seed(SEED + 11), model)
+        _, step = make_mask_train_step(est, lr=1e-4)
+        step(feats, target)  # warm-up, not counted
+        est = init_mask_estractor(torch.Generator().manual_seed(SEED + 11), model)
+        _, step = make_mask_train_step(est, lr=1e-4)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = [step(feats, target) for _ in range(10)]
+        end.record()
+        torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    n_est = sum(p.numel() for p in est.parameters())
+    log(f"  MaskEstractor(N={cfg.division_channel}, {n_est} parameters), 10 steps at lr 1e-4: "
+        f"{start.elapsed_time(end) / 10:.2f} ms per step, loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0], f"mask losses {losses}")
+
+    with timer.phase("cust_map round trip q=5", sync=x1):
+        cust_map = predict_cust_map(est, model, x1)
+        codec = GranularCodec(model, lanes=LANES, device=dev)
+        roundtrip(codec, x1, 5, "cust_map warm-up q=5 b=1", cust_map=cust_map)
+        got, (keep_map, keep_dec) = stacked_keep(model, lambda: roundtrip(
+            codec, x1, 5, "predicted cust_map q=5 b=1", cust_map=cust_map))
+        _, (keep_sigma,) = stacked_keep(model, lambda: codec.compress(x1, quality=5))
+    require(torch.equal(keep_map, keep_dec), "cust_map: the decoder's keep flags != the encoder's")
+    moved = int((keep_map != keep_sigma).sum())
+    log(f"  cust_map q=5: keep count {int(keep_map.sum())} (sigma ranking {int(keep_sigma.sum())}), "
+        f"{moved} keep flags differ from the sigma-ranked codec's")
+    require(moved > 0, "the predicted cust_map kept the same elements as sigma ranking")
+    map_launches = (got["enc"], got["dec"], got["grouped"])
+
+    with timer.phase("ImportanceMapDataset 2 items"):
+        pairs = ImportanceMapDataset(SyntheticKodak(n=2), model, table, patch_size=256)
+        for i in range(len(pairs)):
+            patch, m = pairs[i]
+            require(patch.shape == (256, 256, 3) and m.shape == (16, 16, cfg.division_channel)
+                    and np.isfinite(m).all(), f"ImportanceMapDataset item {i}: {m.shape}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rd.json")
+        zero_launches()
+        t0 = time.perf_counter()
+        with timer.phase("cli.rd_sweep coarse, 1 image"):
+            res = rd_sweep.main(["--synthetic-kodak", "--image", "0", "--grid", "coarse",
+                                 "--device", "cuda", "--out", out])
+        rd_s = time.perf_counter() - t0
+        rd_launches = read_launches()
+        with open(out) as f:
+            require(json.load(f) == res, "rd_sweep's JSON file != its result")
+    n_q = len(res["qualities"])
+    want = (n_q, sum(1 + cfg.ns0 + (q > 0) for q in res["qualities"]), 0)
+    log(f"  cli.rd_sweep: {n_q} qualities in {rd_s:.1f} s, bpp {[round(v, 4) for v in res['bpp']]}, "
+        f"BD-rate {res['bd_rate_vs_fixed_pret']}, launches encode={rd_launches[0]} "
+        f"decode={rd_launches[1]}")
+    require(n_q == 12 and rd_launches == want, f"rd_sweep launches {rd_launches}, want {want}")
+    require(all(a <= c for a, c in zip(res["bpp"], res["bpp"][1:])), "rd_sweep: bpp decreases with q")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer.phase("device_trace q=10 round trip"):
+            with device_trace(tmp) as prof:
+                t0 = time.perf_counter()
+                codec.decompress(codec.deserialize(codec.serialize(codec.compress(x1, quality=10))))
+                torch.cuda.synchronize()
+                traced_ms = 1e3 * (time.perf_counter() - t0)
+        with open(os.path.join(tmp, TRACE_FILE)) as f:
+            trace = f.read()
+    kernel_names = ("rans_encode_scan_kernel", "rans_decode_scan_kernel")
+    require(all(k in trace for k in kernel_names), "the profiler trace lacks a rANS kernel")
+    busy_ms, n_kernels = device_busy_ms(json.loads(trace))
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"  device_trace: {len(trace)} bytes of Chrome trace naming {', '.join(kernel_names)}; "
+        f"{n_kernels} device events busy {busy_ms:.2f} ms of a {traced_ms:.1f} ms round trip under "
+        f"the profiler (idle share {1 - busy_ms / traced_ms:.3f}); most device time: "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms" for e in top))
+
+    fwd = lambda: model.forward_single_quality(x1, 10.0, "point-based-std")  # noqa: E731
+    with torch.no_grad():
+        kinds = flops_by_kind(fwd)
+        fwd_ms = cuda_time_ms(fwd, 5)
+    total = sum(kinds.values())
+    peak, note = chip_peak_flops(dev)
+    util = mfu(total, fwd_ms / 1e3, dev)
+    log(f"  forward_single_quality 768x512 q=10: {total / 1e9:.2f} GFLOP (conv "
+        f"{kinds['conv'] / 1e9:.2f}, conv_transpose {kinds['conv_transpose'] / 1e9:.2f}, matmul "
+        f"{kinds['matmul'] / 1e9:.2f}), {fwd_ms:.2f} ms (CUDA events), MFU {util:.4f} of {note} "
+        f"on {smi}")
+    require(0 < util < 1, f"MFU {util} outside (0, 1)")
+    for name, v in timer.summary().items():
+        log(f"  span {name}: {v['total_s']:.2f} s")
+    return map_launches, rd_launches
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -1084,16 +1304,23 @@ def main() -> int:
     log("phase 7: training the flagship ModelConfig() at TrainConfig() defaults")
     train_enc, train_dec = check_training(dev, smi)
 
+    log("phase 8: importance masks, rd_sweep, profiling")
+    t0 = time.perf_counter()
+    map_launches, rd_launches = check_importance(dev, x1, smi)
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
              replaces="progressivecodec_tpu/coder/rans_pallas.py:117",
              launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
+             cust_map_launches=map_launches[0], rd_sweep_launches=rd_launches[0],
              **results["rans_encode_scan"]),
         dict(name="rans_decode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
+             cust_map_launches=map_launches[1], rd_sweep_launches=rd_launches[1],
              **results["rans_decode_scan"]),
         dict(name="rans_decode_scan_grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",

@@ -4,10 +4,9 @@ random-crop patch loader of training.
 Counterpart of `progressivecodec_tpu/data/datasets.py` (`load_image`,
 `ImageFolderDataset` with its image cap and host striping, `KodakDataset`,
 `random_crop`, `PatchLoader`, `NaturalSyntheticDataset` with its uint8
-cache, `SyntheticKodak`, `SyntheticDataset`; `ImportanceMapDataset` is not
-ported yet).  Each item is an HWC float32 numpy array in [0, 1]; the
-synthetic sets are generated from their seeds with numpy, and the loader
-draws its crops as JAX's does, so with one worker its batches equal the
+cache, `SyntheticKodak`, `SyntheticDataset`, `ImportanceMapDataset`).
+Each image is an HWC float32 numpy array in [0, 1]; the synthetic sets
+are generated from their seeds with numpy, and the loader draws its crops as JAX's does, so with one worker its batches equal the
 JAX package's exactly.  PIL is imported only when an image file is read.
 """
 
@@ -255,3 +254,40 @@ class SyntheticDataset:
         img = np.kron(small, np.ones((8, 8, 1), np.float32))
         img += 0.05 * rng.standard_normal(img.shape).astype(np.float32)
         return np.clip(img, 0.0, 1.0)
+
+
+class ImportanceMapDataset:
+    """Pairs (image patch, gradient importance map) for MaskEstractor
+    training, each map computed when its item is read.
+
+    Item i crops with `np.random.default_rng(seed + i)` as JAX does (the
+    same patch), pads it to a multiple of 64 and runs
+    `layers.importance.importance_map` on the model's device with a
+    `torch.Generator` seeded `seed + i`.  The map's draws come from torch's
+    generator, not JAX's PRNG, so its values differ from the JAX package's
+    for the same seed.  Returns (patch HWC float32, map (h, w, C) float32)."""
+
+    def __init__(self, base_dataset, model, scale_table, patch_size: int = 256, seed: int = 0):
+        self.base = base_dataset
+        self.model = model
+        self.scale_table = scale_table
+        self.patch_size = patch_size
+        self.seed = seed
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, i: int):
+        import torch
+
+        from progressivecodec_tpu_torch.layers.importance import importance_map
+        from progressivecodec_tpu_torch.ops.conv import pad_image
+        from progressivecodec_tpu_torch.ops.noise import NoiseSource
+
+        patch = random_crop(self.base[i], self.patch_size, np.random.default_rng(self.seed + i))
+        device = next(self.model.parameters()).device
+        x = torch.as_tensor(np.ascontiguousarray(patch), dtype=torch.float32, device=device)[None]
+        x_pad, _ = pad_image(x, 64)
+        imap = importance_map(self.model, x_pad, NoiseSource.seeded(self.seed + i),
+                              self.scale_table)
+        return patch, imap[0].cpu().numpy()

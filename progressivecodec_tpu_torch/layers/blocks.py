@@ -83,6 +83,18 @@ class GDN(nn.Module):
         return x * torch.sqrt(norm) if self.inverse else x * torch.rsqrt(norm)
 
 
+class GDN1(GDN):
+    """Simplified GDN: y = x / (beta + sum_j gamma[o,j] |x_j|); the inverse
+    multiplies instead.  Same parameters as GDN."""
+
+    def forward(self, x):
+        beta = nonneg_reparam(self.beta, self.beta_min)
+        gamma = nonneg_reparam(self.gamma)
+        c = gamma.shape[0]
+        norm = F.conv2d(torch.abs(x), gamma.reshape(c, c, 1, 1), beta)
+        return x * norm if self.inverse else x / norm
+
+
 def _rel_pos_index(wh: int, ww: int) -> np.ndarray:
     """Relative-position index table for a (wh, ww) window."""
     coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))

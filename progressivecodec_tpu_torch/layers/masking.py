@@ -1,14 +1,18 @@
 """Variance-aware latent masking.
 
-Counterpart of `progressivecodec_tpu/layers/masking.py` for the policies
-the codec reaches: point-based-std, two-levels, three-levels-std,
-scalable_res and an importance map (`cust_map`), and `apply_mask_noise`.
+Counterpart of `progressivecodec_tpu/layers/masking.py` for every policy:
+point-based-std, two-levels, three-levels-std, random, scalable_res and an
+importance map (`cust_map`), with `apply_mask_noise` and `delta_mask`.
 
 The decoder recomputes the mask from sigma alone, so the mask must be a
 bit-exact function of sigma.  `quantile_mask` therefore reproduces
 `jnp.quantile(..., method="linear")` exactly: sort, then JAX's float32
 index and weight formula.  `torch.quantile` is not used: it interpolates
 with `lerp` and refuses inputs above 2^24 elements.
+
+The random policy draws from an explicit `torch.Generator`, not JAX's PRNG,
+so its masks cannot match the JAX package's bits; it keeps exactly
+int(n * pr * 10 / 100) elements per image, the top of a uniform draw.
 """
 
 from __future__ import annotations
@@ -49,8 +53,10 @@ def quantile_mask(values: torch.Tensor, keep_frac: float) -> torch.Tensor:
 
 def channel_mask(scale: torch.Tensor, *, pr: float, mask_pol: str = "point-based-std",
                  slice_index: int = 0, dim_chunk: int = 32, division_channel: int = 320,
-                 cust_map: torch.Tensor | None = None) -> torch.Tensor:
-    """Enhancement mask for one slice; scale (B, H, W, dim_chunk)."""
+                 cust_map: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """Enhancement mask for one slice; scale (B, H, W, dim_chunk).  The
+    random policy needs `generator`."""
     ones = lambda: torch.ones_like(scale, dtype=F32)  # noqa: E731
     zeros = lambda: torch.zeros_like(scale, dtype=F32)  # noqa: E731
     if cust_map is not None:
@@ -73,6 +79,17 @@ def channel_mask(scale: torch.Tensor, *, pr: float, mask_pol: str = "point-based
         if pr == 2:
             return ones()
         return quantile_mask(scale, 0.2)
+    if mask_pol == "random":
+        if generator is None:
+            raise ValueError("random mask policy needs a torch.Generator")
+        b = scale.shape[0]
+        n = scale.numel() // b
+        num_ones = int(n * (pr * 10) / 100.0)
+        noise = torch.rand((b, n), generator=generator, device=generator.device, dtype=F32)
+        mask = torch.zeros((b, n), dtype=F32, device=generator.device)
+        if num_ones > 0:
+            mask.scatter_(1, torch.topk(noise, num_ones, dim=1).indices, 1.0)
+        return mask.reshape(scale.shape).to(scale.device)
     if mask_pol == "scalable_res":
         if pr == 0:
             return zeros()
@@ -148,3 +165,11 @@ def stacked_channel_mask(scale_stack: torch.Tensor, *, pr: float,
 def apply_mask_noise(mask: torch.Tensor, training: bool = False) -> torch.Tensor:
     """A straight-through round in training, a hard round at eval."""
     return ste_round(mask) if training else torch.round(mask)
+
+
+def delta_mask(scale: torch.Tensor, pr_bar: float, pr: float) -> torch.Tensor:
+    """The elements newly kept between qualities pr_bar <= pr under the
+    point-based-std policy: clip(mask(pr) - mask(pr_bar), 0, 1)."""
+    m_hi = channel_mask(scale, pr=pr, mask_pol="point-based-std")
+    m_lo = channel_mask(scale, pr=pr_bar, mask_pol="point-based-std")
+    return torch.clamp(m_hi - m_lo, 0.0, 1.0)

@@ -6,7 +6,9 @@ forward instead, and each noisy quantiser asks it for its next draw, in
 JAX's order and with JAX's shapes and layouts: the bottleneck's
 (C, 1, B*H*W), then the Gaussian slices channel-last.  Any object with a
 `uniform(shape, device)` method serves (the tests replay JAX's own draws
-through one); no module-level random state is used.
+through one); no module-level random state is used.  The importance map
+(`layers/importance.py`) asks for two standard normal draws the same way,
+through `normal(shape, device)`.
 """
 
 from __future__ import annotations
@@ -15,9 +17,10 @@ import torch
 
 
 class NoiseSource:
-    """U(-0.5, 0.5) float32 draws from an explicit `torch.Generator`.  The
-    draws are made on the generator's device and moved to the device asked
-    for, so a CPU generator gives the same noise to a model on any device."""
+    """U(-0.5, 0.5) and N(0, 1) float32 draws from an explicit
+    `torch.Generator`.  The draws are made on the generator's device and
+    moved to the device asked for, so a CPU generator gives the same noise
+    to a model on any device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -30,3 +33,8 @@ class NoiseSource:
         u = torch.rand(tuple(shape), generator=self.generator, device=self.generator.device,
                        dtype=torch.float32) - 0.5
         return u.to(device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        n = torch.randn(tuple(shape), generator=self.generator, device=self.generator.device,
+                        dtype=torch.float32)
+        return n.to(device)

@@ -35,7 +35,9 @@ def test_port_modules_load_no_jax():
     imported = set(result["imported"])
     for must in ("training.step", "training.loss", "training.optim", "training.freeze",
                  "training.checkpoint", "cli.train", "cli.eval", "utils.rd", "models.warmstart",
-                 "ops.noise", "coder.rans_cuda"):
+                 "ops.noise", "coder.rans_cuda", "layers.importance", "layers.postnets",
+                 "training.mask_trainer", "cli.rd_sweep", "utils.profiling", "utils.flops",
+                 "data.openimages"):
         assert f"{PACKAGE}.{must}" in imported, must
     leaked = [m for m in result["loaded"]
               if m.split(".")[0] in BANNED or m == "progressivecodec_tpu"
