@@ -82,11 +82,39 @@ printing a result:
      `PhaseTimer` spans around each; a `device_trace` of one q=10 round
      trip that must name both rANS kernels; `count_flops` of
      `forward_single_quality` at q=10 and the MFU of its CUDA-event-timed
-     run against the card's float32 peak, which must lie in (0, 1).
+     run against the card's float32 peak, which must lie in (0, 1);
+  9. parallel/ (`parallel/` of the port, on torch.distributed): two ranks
+     spawned on the one card (gloo, a file store in a temporary directory;
+     they load phase 2's kernels and build none), references computed here
+     first.  9.1, the sharded coder: phase 3's 12 flagship-table stages at
+     K=512, G=2 (kt=256) and three smaller stages at K=32, G=2 (kt=16, the
+     encode kernel's padded block), escapes included: each rank's streams
+     equal the single-process `encode_stages_grouped(groups=2)` byte for
+     byte, the sharded decode gives the symbols exactly with stream_ok;
+     CUDA-event ms of each rank's encode launch and decode launches, host
+     ms of its gathers.  9.2, the tiled codec at 2048x1024
+     (tools/bench_2k.py's size) on the flagship: tiled analysis within 1e-5
+     (max|dy| / max|y|) of the full width; tiled_compress -> serialize ->
+     deserialize -> tiled_decompress at q in {0, 10} with one stream and
+     with a coder_mesh over the two ranks, stream_ok and y_hat bit-exact;
+     each untiled stream decodes tiled, each tiled stream decodes untiled
+     here; the bytes and symbols in which the tiled stream differs from
+     the untiled one are printed, not required; wall ms of both.  9.3, the
+     flagship train step at TrainConfig() defaults (batch 16, 256x256) on
+     meshes (2, 1) and (1, 2) against one single-process step here on the
+     same batch, weights and noise: loss within rtol 1e-4, every gradient
+     within ||dg|| / ||g|| <= 1e-3; on (1, 2) each rank must hold half of
+     every sharded leaf and all of the replicated ones; 3 more steps on
+     (2, 1), losses finite, ms per step.  9.4, a one-rank NCCL group from
+     `initialize_from_env`: `allreduce_metrics`, an all_reduce, and the
+     sharded coder at G=1 on CUDA tensors.  Two ranks time-share the card:
+     no time of phase 9 is a scaling number.  Any failure in a rank exits
+     nonzero, and every process started is stopped.
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
-(phase 8's map-ranked round trip) and `rd_sweep_launches`.
+(phase 8's map-ranked round trip) and `rd_sweep_launches`; every entry
+carries `sharded_launches`, the launches phase 9's ranks made.
 """
 
 from __future__ import annotations
@@ -549,17 +577,18 @@ def check_grouped_cases(codec, dev):
 # ---------------------------------------------------------------------------
 
 
-def synthetic_image(batch: int, seed: int):
-    """Seeded natural-looking 768x512 images in [0, 1], NHWC float32."""
+def synthetic_image(batch: int, seed: int, h: int = H, w: int = W):
+    """Seeded natural-looking h x w (default 768x512) images in [0, 1],
+    NHWC float32."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     out = []
     for _ in range(batch):
         f = rng.uniform(0.005, 0.03, (3, 2))
         ph = rng.uniform(0, 2 * np.pi, (3, 2))
         img = np.stack([0.5 + 0.25 * np.sin(f[c, 0] * xx + ph[c, 0]) * np.cos(f[c, 1] * yy + ph[c, 1])
                         for c in range(3)], axis=-1)
-        img += 0.05 * rng.standard_normal((H, W, 3)).astype(np.float32)
+        img += 0.05 * rng.standard_normal((h, w, 3)).astype(np.float32)
         out.append(np.clip(img, 0.0, 1.0))
     return np.stack(out).astype(np.float32)
 
@@ -1206,6 +1235,501 @@ def check_importance(dev, x1, smi):
     return map_launches, rd_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+P9_COLLECTIVE_S = 300  # each collective of a phase-9 rank waits at most this
+P9_JOB_S = 600  # the 2-rank job as a whole
+
+
+def p9_plan(dev, cfg=None, size=(1024, 2048), batch=16, patch=256):
+    """What phase 9 runs: the device, the model, the tiled image's (H, W),
+    the training batch and patch.  The defaults are the card's: the
+    flagship, tools/bench_2k.py's 2048x1024, TrainConfig()'s batch 16 at
+    256x256."""
+    from progressivecodec_tpu_torch.config import ModelConfig
+
+    return dict(dev=dev.type, cfg=cfg or ModelConfig(), size=size, batch=batch, patch=patch)
+
+
+def p9_coder_stages(codec):
+    """{lanes: stages}: phase 3's 12 flagship-table stages at K=LANES, and z,
+    one base slice and part of the enhancement at K=32."""
+    tables, row0 = codec._tables, codec.gauss_row0
+    small = flagship_stages(tables, row0, np.random.default_rng(SEED + 10))
+    return {LANES: flagship_stages(tables, row0, np.random.default_rng(SEED + 9)),
+            32: [small[0], small[1], tuple(a[:50_000] for a in small[-1])]}
+
+
+def p9_batch(plan):
+    return torch.rand((plan["batch"], plan["patch"], plan["patch"], 3), dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(SEED + 11))
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p9_events(dev):
+    """The three kernel wrappers and the sharded coder's gather, wrapped to
+    time each call: CUDA events around each kernel launch, the host clock
+    (after a sync) around each gather through host memory.  Returns
+    (spans {name: [(start, end)] or [ms]}, restore)."""
+    from progressivecodec_tpu_torch.coder import rans_cuda
+    from progressivecodec_tpu_torch.parallel import sharded_coder
+
+    spans = {"encode": [], "decode": [], "gather_ms": []}
+    orig = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather)
+
+    def evented(fn, key):
+        # the kernel wrapper counts its launches on the module's name, which
+        # is this function's while it stands in: `restore` hands them back
+        def run(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            spans[key].append((e0, e1))
+            return out
+        run.launches = fn.launches
+        return run
+
+    def gather(*a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = orig[2](*a, **kw)
+        _sync(dev)
+        spans["gather_ms"].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    rans_cuda.rans_encode_scan = evented(orig[0], "encode")
+    rans_cuda.rans_decode_scan_grouped = evented(orig[1], "decode")
+    sharded_coder.all_gather = gather
+
+    def restore():
+        orig[0].launches = rans_cuda.rans_encode_scan.launches
+        orig[1].launches = rans_cuda.rans_decode_scan_grouped.launches
+        rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather = orig
+
+    return spans, restore
+
+
+def _p9_coder(codec, mesh, dev, ref) -> dict:
+    """9.1: this rank's group of the PCT1-G streams at (K, G) = (LANES, 2)
+    and (32, 2), against the single-process grouped encoder's streams
+    (`ref`), then the stage-wise sharded decode.  Returns, per K, the CUDA-
+    event ms of this rank's encode launch and of its decode launches, and
+    the host ms of its gathers."""
+    from progressivecodec_tpu_torch.coder import rans_device
+    from progressivecodec_tpu_torch.parallel.sharded_coder import (
+        sharded_decode_stage,
+        sharded_encode_stages,
+    )
+
+    t = codec.device_tables
+    out = {}
+    # each case twice: the first pass loads the kernels in this process and
+    # warms the allocator; the second pass's times are kept
+    for lanes, stages in [c for c in p9_coder_stages(codec).items() for _ in range(2)]:
+        dstages = [tuple(a.to(dev) for a in s) for s in stages]
+        spans, restore = _p9_events(dev)
+        try:
+            streams, n_words, escs, n_escs = sharded_encode_stages(dstages, t, lanes, mesh)
+            for got, want, what in zip((streams, n_words, escs, n_escs), ref[lanes],
+                                       ("streams", "n_words", "escs", "n_escs")):
+                require(torch.equal(got.cpu(), want), f"sharded {what} != the grouped encoder's at K={lanes}")
+            padded = torch.nn.functional.pad(escs, (0, 2))
+            dec = rans_device.grouped_decoder_init(streams, lanes, 2)
+            for (sym, idx, keep), rows in zip(dstages, stage_rows(codec, len(dstages))):
+                dec, vals = sharded_decode_stage(dec, streams, padded, idx, keep, t, lanes, mesh,
+                                                 rows=rows)
+                require(torch.equal(vals, torch.where(keep, sym, 0)),
+                        f"sharded decode values != symbols at K={lanes}")
+            require(bool(rans_device.stream_ok(dec)) and torch.equal(dec.offsets, n_words.to(torch.int32)),
+                    f"sharded decode at K={lanes}: stream_ok is False")
+            _sync(dev)
+        finally:
+            restore()
+        out[lanes] = dict(
+            rows=sum(rans_device._pad_to_grid(s[1], lanes).shape[0] for s in dstages),
+            encode_ms=sum(a.elapsed_time(b) for a, b in spans["encode"]),
+            decode_ms=sum(a.elapsed_time(b) for a, b in spans["decode"]),
+            decode_launches=len(spans["decode"]), gathers=len(spans["gather_ms"]),
+            gather_ms=sum(spans["gather_ms"]),
+        )
+    return out
+
+
+def _p9_tiled(model, mesh, dev, ref) -> dict:
+    """9.2: the tiled analysis against the full width, then tiled round
+    trips at q in {0, 10} with one stream and with the coder sharded over
+    the ranks (groups=2), each against the untiled stream (`ref`), and each
+    untiled stream decoded tiled."""
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.parallel import tiling
+
+    x = ref["x"].to(dev)
+    with torch.no_grad():
+        y = tiling.tiled_analyze(model, x, mesh).cpu()
+    rel = float((y - ref["y"]).abs().max() / ref["y"].abs().max())
+    require(rel <= 1e-5, f"tiled analyze: max|dy| / max|y| = {rel}")
+    out = {"analyze_rel": rel, "runs": {}}
+    codecs = {1: GranularCodec(model, lanes=LANES, device=dev),
+              2: GranularCodec(model, lanes=LANES, coder_mesh=mesh, device=dev)}
+    tiling.tiled_decompress(codecs[1], tiling.tiled_compress(codecs[1], x, mesh), mesh)  # warm-up
+    for groups, codec in codecs.items():
+        for q in (0, 10):
+            label = f"tiled groups={groups} q={q}"
+            _sync(dev)
+            t0 = time.perf_counter()
+            data = tiling.tiled_compress(codec, x, mesh, quality=q, simulate=True)
+            _sync(dev)
+            t1 = time.perf_counter()
+            blob = codec.serialize(data)
+            back = codec.deserialize(blob)
+            _sync(dev)
+            t2 = time.perf_counter()
+            dec = tiling.tiled_decompress(codec, back, mesh)
+            _sync(dev)
+            t3 = time.perf_counter()
+            require(dec["stream_ok"], f"{label}: stream_ok is False")
+            require(torch.equal(dec["y_hat"], data["y_hat"]), f"{label}: decoded y_hat != encoder y_hat")
+            require(tuple(dec["x_hat"].shape) == tuple(x.shape) and bool(torch.isfinite(dec["x_hat"]).all()),
+                    f"{label}: x_hat {tuple(dec['x_hat'].shape)} or not finite")
+            untiled = ref["blobs"][groups, q]
+            n = min(len(blob), len(untiled))
+            diff_bytes = int((np.frombuffer(blob[:n], np.uint8) != np.frombuffer(untiled[:n], np.uint8)).sum()
+                             + abs(len(blob) - len(untiled)))
+            diff_symbols = int((data["y_hat"].cpu() != ref["y_hat"][groups, q]).sum())
+            cross = tiling.tiled_decompress(codec, codec.deserialize(untiled), mesh)
+            require(cross["stream_ok"] and torch.equal(cross["y_hat"].cpu(), ref["y_hat"][groups, q]),
+                    f"{label}: the untiled stream does not decode tiled to its y_hat")
+            out["runs"][groups, q] = dict(
+                bytes=len(blob), untiled_bytes=len(untiled), diff_bytes=diff_bytes,
+                diff_symbols=diff_symbols, encode_ms=1e3 * (t1 - t0), decode_ms=1e3 * (t3 - t2),
+                blob=blob, y_hat=data["y_hat"].cpu(),
+            )
+    return out
+
+
+def _p9_train(plan, dev, ref) -> dict:
+    """9.3: one sharded step on (2, 1) and on (1, 2) against the
+    single-process step (`ref`), then 3 more steps on (2, 1)."""
+    from progressivecodec_tpu_torch.config import TrainConfig
+    from progressivecodec_tpu_torch.ops.noise import NoiseSource
+    from progressivecodec_tpu_torch.parallel.mesh import make_mesh
+    from progressivecodec_tpu_torch.parallel.sharding import (
+        gather_full, make_sharded_train_step, resident_param_bytes, shard_train_state,
+    )
+    from progressivecodec_tpu_torch.training.step import init_train_state
+
+    x = p9_batch(plan).to(dev)
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        mesh = make_mesh(*shape, device_type=dev.type)
+        state = shard_train_state(init_train_state(seeded_model(plan["cfg"], dev), TrainConfig()), mesh)
+        step = make_sharded_train_step(mesh)
+        noise = NoiseSource.seeded(SEED + 11, "cpu")
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, x, noise)
+        _sync(dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        for k in ("loss", "aux_loss", "loss_total"):
+            got, want = float(metrics[k]), ref["metrics"][k]
+            require(abs(got - want) <= 1e-4 * abs(want), f"mesh {shape} {k}: {got} vs {want}")
+        grads = gather_full(state, grads=True)
+        require(set(grads) == set(ref["grads"]), f"mesh {shape}: other leaves have gradients")
+        worst, worst_name = 0.0, ""
+        for name, g in ref["grads"].items():
+            g = g.to(dev)
+            rel = float((grads[name] - g).norm() / g.norm()) if float(g.norm()) > 0 else float(grads[name].norm())
+            if rel > worst:
+                worst, worst_name = rel, name
+        require(worst <= 1e-3, f"mesh {shape} gradient {worst_name}: ||dg|| / ||g|| = {worst}")
+        names = {s.name for s in state.shards}
+        full = {n: p.numel() * p.element_size() for n, p in ref["grads"].items()}
+        sharded = sum(s.storage.numel() * s.storage.element_size() for s in state.shards)
+        replicated = sum(p.numel() * p.element_size() for n, p in state.model.named_parameters()
+                         if n not in names)
+        more = []
+        if shape == (2, 1):
+            for _ in range(3):
+                _sync(dev)
+                t0 = time.perf_counter()
+                state, m = step(state, x, noise)
+                _sync(dev)
+                more.append((1e3 * (time.perf_counter() - t0), float(m["loss"])))
+            require(all(np.isfinite(loss) for _, loss in more), f"mesh {shape}: a loss is not finite {more}")
+        out[shape] = dict(
+            loss=float(metrics["loss"]), worst=worst, worst_name=worst_name, first_ms=first_ms,
+            more=more, resident=resident_param_bytes(state), sharded_bytes=sharded,
+            full_sharded_bytes=sum(full.get(n, 0) for n in names), replicated_bytes=replicated,
+            n_shards=len(state.shards), n_params=len(ref["grads"]),
+        )
+        del state, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def p9_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 9's 2-rank job (a spawned process): 9.1, 9.2 and
+    9.3 on `workdir`'s plan and references; writes rank<rank>.pt with the
+    results and this rank's kernel launches.  The kernels are loaded from
+    phase 2's build, never built here."""
+    import datetime
+    import logging
+    import os
+
+    from progressivecodec_tpu_torch.device import set_deterministic
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.parallel import distributed
+    from progressivecodec_tpu_torch.parallel.mesh import make_mesh
+
+    logging.basicConfig(level=logging.INFO, format=f"  [rank {rank}] %(message)s", stream=sys.stdout)
+    plan = torch.load(os.path.join(workdir, "plan.pt"), weights_only=False)
+    dev = torch.device(plan["dev"])
+    distributed.init_process_group(f"file://{workdir}/store", world, rank, "gloo",
+                                   timeout=datetime.timedelta(seconds=P9_COLLECTIVE_S))
+    try:
+        set_deterministic()
+        zero_launches()
+        mesh = make_mesh(1, 2, device_type=dev.type)
+        model = seeded_model(plan["cfg"], dev)
+        codec = GranularCodec(model, lanes=LANES, device=dev)
+        codec.update()
+        ref = torch.load(os.path.join(workdir, "ref.pt"), weights_only=False)
+        out = {"coder": _p9_coder(codec, mesh, dev, ref["coder"])}
+        out["coder_launches"] = read_launches()
+        out["tiled"] = _p9_tiled(model, mesh, dev, ref["tiled"])
+        out["tiled_launches"] = read_launches()
+        del model, codec
+        out["train"] = _p9_train(plan, dev, torch.load(os.path.join(workdir, "train_ref.pt"),
+                                                       weights_only=False))
+        out["launches"] = read_launches()
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def p9_nccl(workdir: str, port: int) -> None:
+    """9.4, a spawned process: a one-rank NCCL group from the environment,
+    `allreduce_metrics`, an all_reduce, and one `sharded_encode_stages` /
+    `sharded_decode_stage` at G=1 on CUDA tensors; writes nccl.pt."""
+    import datetime
+    import os
+
+    from progressivecodec_tpu_torch.coder import rans_device
+    from progressivecodec_tpu_torch.device import set_deterministic
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.parallel import distributed
+    from progressivecodec_tpu_torch.parallel.mesh import make_mesh
+    from progressivecodec_tpu_torch.parallel.sharded_coder import (
+        sharded_decode_stage,
+        sharded_encode_stages,
+    )
+
+    plan = torch.load(os.path.join(workdir, "plan.pt"), weights_only=False)
+    os.environ.update(COORDINATOR_ADDRESS=f"127.0.0.1:{port}", PROCESS_COUNT="1", PROCESS_ID="0")
+    require(distributed.initialize_from_env("nccl", timeout=datetime.timedelta(seconds=120)) == (0, 1),
+            "initialize_from_env did not give rank 0 of 1")
+    try:
+        set_deterministic()
+        zero_launches()
+        dev = torch.device("cuda")
+        require(torch.distributed.get_backend() == "nccl", "the group's backend is not nccl")
+        metrics = distributed.allreduce_metrics({"loss": 2.5})
+        total = distributed.all_reduce(torch.full((4,), 3.0, device=dev))
+        require(metrics == {"loss": 2.5} and bool((total == 3.0).all()), "one-rank NCCL reductions")
+        mesh = make_mesh(1, 1)
+        codec = GranularCodec(seeded_model(plan["cfg"], dev), lanes=LANES)
+        codec.update()
+        t = codec.device_tables
+        stages = [tuple(a.to(dev) for a in s) for s in p9_coder_stages(codec)[32]]
+        lanes = 64
+        got = sharded_encode_stages(stages, t, lanes, mesh)
+        want = rans_device.encode_stages_grouped(stages, t, lanes, 1)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                "NCCL G=1 sharded streams != the grouped encoder's")
+        streams, n_words, escs, _ = got
+        padded = torch.nn.functional.pad(escs, (0, 2))
+        dec = rans_device.grouped_decoder_init(streams, lanes, 1)
+        for (sym, idx, keep), rows in zip(stages, stage_rows(codec, len(stages))):
+            dec, vals = sharded_decode_stage(dec, streams, padded, idx, keep, t, lanes, mesh, rows=rows)
+            require(torch.equal(vals, torch.where(keep, sym, 0)), "NCCL G=1 decoded values != symbols")
+        require(bool(rans_device.stream_ok(dec)), "NCCL G=1: stream_ok is False")
+        torch.save({"launches": read_launches(), "words": int(n_words.sum())},
+                   os.path.join(workdir, "nccl.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_spawned(jobs, timeout: float) -> None:
+    """Run each (function, args) of `jobs` in a process started with spawn
+    (this process has initialised CUDA); wait for all of them.  If one
+    exits nonzero or the time runs out, every one is killed and this
+    raises."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in jobs]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            codes = [p.exitcode for p in procs]
+            require(all(c in (None, 0) for c in codes), f"a phase-9 process failed: exit codes {codes}")
+            require(time.monotonic() < deadline, f"phase 9's processes ran past {timeout} s")
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        require(all(c == 0 for c in codes), f"phase 9's processes exited {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def check_parallel(dev, smi, plan=None):
+    """Phase 9: `parallel/` with two ranks sharing the card (gloo), then a
+    one-rank NCCL group.  This process computes the references first (the
+    single-process grouped streams, the untiled round trips and analysis at
+    2048x1024, one single-process train step), then spawns the 2-rank job
+    (`p9_rank`), decodes the ranks' tiled streams untiled, and runs
+    `p9_nccl`.  Returns the kernels' launches in the ranks, (encode,
+    decode, grouped decode)."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    from progressivecodec_tpu_torch.coder import rans_device
+    from progressivecodec_tpu_torch.config import TrainConfig
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.ops.noise import NoiseSource
+    from progressivecodec_tpu_torch.training.step import init_train_state, make_train_step
+
+    plan = plan or p9_plan(dev)
+    h, w = plan["size"]
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        torch.save(plan, os.path.join(workdir, "plan.pt"))
+        model = seeded_model(plan["cfg"], dev)
+        codecs = {1: GranularCodec(model, lanes=LANES, device=dev),
+                  2: GranularCodec(model, lanes=LANES, groups=2, device=dev)}
+        codecs[1].update()
+        coder_ref = {}
+        for lanes, stages in p9_coder_stages(codecs[1]).items():
+            dstages = [tuple(a.to(dev) for a in s) for s in stages]
+            coder_ref[lanes] = tuple(a.cpu() for a in rans_device.encode_stages_grouped(
+                dstages, codecs[1].device_tables, lanes, 2))
+        x = torch.from_numpy(synthetic_image(1, SEED + 12, h, w)).to(dev)
+        with torch.no_grad():
+            y = model.analyze(x).cpu()
+        tiled_ref = {"x": x.cpu(), "y": y, "blobs": {}, "y_hat": {}}
+        untiled_ms = {}
+        codecs[1].decompress(codecs[1].compress(x, quality=10))  # warm-up at this size
+        for groups, codec in codecs.items():
+            for q in (0, 10):
+                _sync(dev)
+                t0 = time.perf_counter()
+                data = codec.compress(x, quality=q, simulate=True)
+                _sync(dev)
+                t1 = time.perf_counter()
+                blob = codec.serialize(data)
+                out = codec.decompress(codec.deserialize(blob))
+                _sync(dev)
+                t2 = time.perf_counter()
+                require(out["stream_ok"] and torch.equal(out["y_hat"], data["y_hat"]),
+                        f"untiled groups={groups} q={q} at {w}x{h}: round trip not exact")
+                tiled_ref["blobs"][groups, q] = blob
+                tiled_ref["y_hat"][groups, q] = data["y_hat"].cpu()
+                untiled_ms[groups, q] = (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+        torch.save({"coder": coder_ref, "tiled": tiled_ref}, os.path.join(workdir, "ref.pt"))
+        del model, codecs, tiled_ref
+
+        state = init_train_state(seeded_model(plan["cfg"], dev), TrainConfig())
+        _, metrics = make_train_step()(state, p9_batch(plan).to(dev), NoiseSource.seeded(SEED + 11, "cpu"))
+        torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "grads": {n: p.grad.detach().cpu() for n, p in state.model.named_parameters()
+                              if p.grad is not None}},
+                   os.path.join(workdir, "train_ref.pt"))
+        ref_loss = float(metrics["loss"])
+        del state, metrics
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run_spawned([(p9_rank, (r, 2, workdir)) for r in range(2)], P9_JOB_S)
+        job_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+        model = seeded_model(plan["cfg"], dev)
+        codecs = {1: GranularCodec(model, lanes=LANES, device=dev),
+                  2: GranularCodec(model, lanes=LANES, groups=2, device=dev)}
+        for (groups, q), run in ranks[0]["tiled"]["runs"].items():
+            out = codecs[groups].decompress(codecs[groups].deserialize(run["blob"]))
+            require(out["stream_ok"] and torch.equal(out["y_hat"].cpu(), run["y_hat"]),
+                    f"the tiled stream groups={groups} q={q} does not decode untiled to its y_hat")
+        del model, codecs
+
+        nccl = None
+        if dev.type == "cuda":
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            run_spawned([(p9_nccl, (workdir, port))], 300)
+            nccl = torch.load(os.path.join(workdir, "nccl.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    share = "[two ranks time-share the card: not a scaling number]"
+    log(f"  the 2-rank job took {job_s:.1f} s on {smi}; every time below is of two ranks "
+        f"time-sharing one card, so none is a scaling number")
+    for r, res in enumerate(ranks):
+        for lanes, c in res["coder"].items():
+            log(f"  9.1 rank {r} sharded coder K={lanes} G=2 (kt={lanes // 2}), {c['rows']} rows: "
+                f"streams == the grouped encoder's, values exact, stream_ok; encode launch "
+                f"{c['encode_ms']:.4f} ms, {c['decode_launches']} grouped decode launches "
+                f"{c['decode_ms']:.4f} ms (CUDA events), {c['gathers']} gathers {c['gather_ms']:.1f} ms "
+                f"(host clock) {share}")
+    tiled = ranks[0]["tiled"]
+    log(f"  9.2 tiled analyze at {w}x{h}: max|dy| / max|y| = {tiled['analyze_rel']:.3g} "
+        f"(rank 1: {ranks[1]['tiled']['analyze_rel']:.3g})")
+    for (groups, q), run in tiled["runs"].items():
+        enc_u, dec_u = untiled_ms[groups, q]
+        log(f"  9.2 {'coder_mesh' if groups == 2 else 'groups=1'} q={q}: {run['bytes']} bytes "
+            f"(untiled {run['untiled_bytes']}; {run['diff_bytes']} bytes and {run['diff_symbols']} "
+            f"symbols differ), stream_ok, y_hat bit-exact, cross-decodes both ways; tiled encode "
+            f"{run['encode_ms']:.1f} ms, decode {run['decode_ms']:.1f} ms (rank 0), untiled encode "
+            f"{enc_u:.1f} ms, decode {dec_u:.1f} ms (one process) {share}")
+    for shape in ((2, 1), (1, 2)):
+        for r, res in enumerate(ranks):
+            t = res["train"][shape]
+            more = ", ".join(f"{ms:.1f}" for ms, _ in t["more"])
+            log(f"  9.3 rank {r} mesh {shape}: loss {t['loss']:.6g} (one process {ref_loss:.6g}), worst "
+                f"||dg||/||g|| {t['worst']:.3g} ({t['worst_name']}) over {t['n_params']} leaves; step "
+                f"{t['first_ms']:.1f} ms" + (f", 3 more steps {more} ms" if more else "")
+                + f"; resident parameters {t['resident']} bytes = {t['sharded_bytes']} sharded "
+                f"(of {t['full_sharded_bytes']}, {t['n_shards']} leaves) + {t['replicated_bytes']} "
+                f"replicated {share}")
+            if shape == (1, 2):
+                require(t["n_shards"] > 0 and 2 * t["sharded_bytes"] == t["full_sharded_bytes"]
+                        and t["resident"] == t["sharded_bytes"] + t["replicated_bytes"],
+                        f"mesh (1, 2) rank {r}: the sharded leaves are not held by halves")
+    launches = tuple(sum(res["launches"][i] for res in ranks) for i in range(3))
+    if nccl is not None:
+        launches = tuple(a + b for a, b in zip(launches, nccl["launches"]))
+        log(f"  9.4 one-rank NCCL group: allreduce_metrics, all_reduce, G=1 sharded encode and "
+            f"decode == the grouped encoder's, values exact, stream_ok; launches {nccl['launches']}")
+    log(f"  phase 9 launches in the ranks (encode, decode, grouped decode): {launches}")
+    return launches
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -1309,23 +1833,31 @@ def main() -> int:
     map_launches, rd_launches = check_importance(dev, x1, smi)
     log(f"  phase 8 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 9: parallel/, two ranks on the card (gloo), then a one-rank NCCL group")
+    del x1
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sharded = check_parallel(dev, smi)
+    require(all(n > 0 for n in sharded), f"a kernel was not launched in phase 9's ranks: {sharded}")
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
              replaces="progressivecodec_tpu/coder/rans_pallas.py:117",
              launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
              cust_map_launches=map_launches[0], rd_sweep_launches=rd_launches[0],
-             **results["rans_encode_scan"]),
+             sharded_launches=sharded[0], **results["rans_encode_scan"]),
         dict(name="rans_decode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
              cust_map_launches=map_launches[1], rd_sweep_launches=rd_launches[1],
-             **results["rans_decode_scan"]),
+             sharded_launches=sharded[1], **results["rans_decode_scan"]),
         dict(name="rans_decode_scan_grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
-             launches=grouped_counts["grouped"], library_ms=None,
+             launches=grouped_counts["grouped"], library_ms=None, sharded_launches=sharded[2],
              **results["rans_decode_scan_grouped"]),
     ]
     log(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -44,6 +44,7 @@ from progressivecodec_tpu_torch.models.codec_granular import make_codec
 from progressivecodec_tpu_torch.models.registry import get_model
 from progressivecodec_tpu_torch.models.weights import init_params
 from progressivecodec_tpu_torch.ops.noise import NoiseSource
+from progressivecodec_tpu_torch.parallel.distributed import process_index_count
 from progressivecodec_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from progressivecodec_tpu_torch.training.evaluate import entropy_estimate_eval, evaluate_codec
 from progressivecodec_tpu_torch.training.optim import (
@@ -125,7 +126,10 @@ def _datasets(args, tcfg: TrainConfig):
     if args.synthetic:
         return (SyntheticDataset(n=max(64, tcfg.batch_size * 4), size=tcfg.patch_size),
                 [SyntheticDataset(n=2, size=256)[i] for i in range(2)], None)
-    train = ImageFolderDataset(args.train_dir, "train", tcfg.num_images)
+    # each process of a multi-process run reads its own stripe of the files
+    host, hosts = process_index_count()
+    train = ImageFolderDataset(args.train_dir, "train", tcfg.num_images, host_index=host,
+                               host_count=hosts)
     kodak = KodakDataset(args.test_dir)
     return train, [kodak[i] for i in range(len(kodak))], None
 

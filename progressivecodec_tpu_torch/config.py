@@ -99,8 +99,9 @@ class CoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training protocol defaults.  The mesh axes (data-parallel x
-    spatial-tile) must be 1: the port trains on one device."""
+    """Training protocol defaults.  `mesh_data` and `mesh_tile` are held
+    as JAX holds them and read nowhere, as in JAX: a sharded run builds its
+    mesh with `parallel/mesh.make_mesh`."""
 
     batch_size: int = 16
     patch_size: int = 256
@@ -116,13 +117,6 @@ class TrainConfig:
     num_images_val: int = 816
     mesh_data: int = 1
     mesh_tile: int = 1
-
-    def __post_init__(self):
-        if self.mesh_data != 1 or self.mesh_tile != 1:
-            raise NotImplementedError(
-                f"mesh_data={self.mesh_data}, mesh_tile={self.mesh_tile}: training on a "
-                "device mesh comes with the parallel/ slice of the port"
-            )
 
 
 def to_json(cfg: Any) -> str:

@@ -20,7 +20,10 @@ The rANS scans run as CUDA kernels on the card (`coder/rans_cuda.py`):
 one encode-scan launch per `compress`, one decode-scan launch per stage of
 `decompress` (z, each base slice, then the stacked enhancement stage or
 one stage per unrolled enhancement slice when quality > 0); with groups > 1
-each stage is one launch of the grouped decode kernel.
+each stage is one launch of the grouped decode kernel.  With a
+`coder_mesh` (parallel/sharded_coder.py) each rank of the mesh axis makes
+those launches for its own lane group: an encode launch over its kt lanes,
+and per stage a grouped decode launch of one CTA.
 """
 
 from __future__ import annotations
@@ -39,6 +42,10 @@ from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN, unstack_channels
 from progressivecodec_tpu_torch.models.wacnn import WACNN
+from progressivecodec_tpu_torch.parallel.sharded_coder import (
+    sharded_decode_stage,
+    sharded_encode_stages,
+)
 
 F32 = torch.float32
 I32 = torch.int32
@@ -48,18 +55,27 @@ class GranularCodec(Codec):
     """Codec with per-stage shared fragments for the port's model families."""
 
     def __init__(self, model, lanes: int = DEFAULT_LANES, groups: int = 1, coder_mesh=None,
-                 lane_policy: str = "fixed", device=None):
+                 coder_axis: str = "model", lane_policy: str = "fixed", device=None):
         """lanes: with one stream a multiple of 32 in [32, 1024] (one decode
         CTA of whole warps); with groups > 1 (the PCT1-G wire format) a
-        multiple of groups with at most 1024 per group.  lane_policy:
-        "fixed" uses `lanes` for every stream; "auto" scales the lane count
-        with the coded-symbol estimate from container metadata only, so the
-        decoder reproduces it (rounded up to a multiple of groups).  The
-        model is moved to `device` (default `cuda`)."""
+        multiple of groups with at most 1024 per group.  coder_mesh: a
+        DeviceMesh (parallel/mesh.py) whose `coder_axis` runs the G groups
+        one per rank (parallel/sharded_coder.py); groups defaults to the
+        axis size and must equal it.  The containers are those of
+        `groups=G`.  lane_policy: "fixed" uses `lanes` for every stream;
+        "auto" scales the lane count with the coded-symbol estimate from
+        container metadata only, so the decoder reproduces it (rounded up
+        to a multiple of groups).  The model is moved to `device` (default
+        `cuda`)."""
         if coder_mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded coding (coder_mesh) comes with the parallel/ slice of the port"
-            )
+            from progressivecodec_tpu_torch.parallel.mesh import check_axis
+
+            check_axis(coder_mesh, coder_axis)
+            size = coder_mesh[coder_axis].size()
+            groups = size if groups == 1 else groups
+            if groups != size:
+                raise ValueError(f"groups={groups} on a {coder_axis!r} axis of {size} ranks")
+        self.coder_mesh, self.coder_axis = coder_mesh, coder_axis
         if lane_policy not in ("fixed", "auto"):
             raise ValueError(f"lane_policy {lane_policy!r}")
         if not isinstance(model, (ChannelProgressiveWACNN, WACNN)):
@@ -260,9 +276,14 @@ class GranularCodec(Codec):
         }
         t = self.device_tables
         if self.groups > 1:
-            streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(
-                stages, t, lanes, self.groups
-            )
+            if self.coder_mesh is not None:
+                streams, n_words, escs, n_escs = sharded_encode_stages(
+                    stages, t, lanes, self.coder_mesh, self.coder_axis
+                )
+            else:
+                streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(
+                    stages, t, lanes, self.groups
+                )
             nw, ne = n_words.tolist(), n_escs.tolist()
             result.update({
                 "groups": self.groups,
@@ -347,6 +368,9 @@ class GranularCodec(Codec):
                 esc_offset, vals = rans_device.decode_stage_values(
                     d.esc_offset, cums, esc, idx_flat, kp_flat, t, lanes)
                 dec[0] = DecoderState(states, offset, esc_offset)
+            elif self.coder_mesh is not None:
+                dec[0], vals = sharded_decode_stage(d, streams, escs, idx_flat, kp_flat, t, lanes,
+                                                    self.coder_mesh, self.coder_axis, rows)
             else:
                 states, offsets, cums = rans_device.decode_stage_grouped_scan(
                     d, streams, ig, kg, t, lanes, rows)

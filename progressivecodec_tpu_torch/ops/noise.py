@@ -38,3 +38,27 @@ class NoiseSource:
         n = torch.randn(tuple(shape), generator=self.generator, device=self.generator.device,
                         dtype=torch.float32)
         return n.to(device)
+
+
+class RankSliceNoise:
+    """This rank's part of the global batch's noise, under data parallelism.
+
+    Each draw is made from `source` at the GLOBAL batch's shape, in the
+    unsharded step's order, and rank `index` of `count` keeps its rows, so
+    the ranks together use exactly the noise of the unsharded step.  The
+    batch axis of a draw follows from its layout:
+      (C, 1, B*H*W)    the bottleneck's, images outermost in the last axis:
+                       a contiguous block of b*H*W per rank;
+      (S, B, h, w, c)  the stacked enhancement's, the batch on dim 1;
+      (B, ...)         every other draw, channel-last: the batch on dim 0.
+    """
+
+    def __init__(self, source, index: int, count: int):
+        self.source, self.index, self.count = source, index, count
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        shape = list(shape)
+        axis = {3: 2, 5: 1}.get(len(shape), 0)
+        local = shape[axis]
+        shape[axis] = local * self.count
+        return self.source.uniform(shape, device).narrow(axis, self.index * local, local)

@@ -33,9 +33,12 @@ class Optimizers:
     and base lr."""
 
     def __init__(self, model: torch.nn.Module, lr: float = 1e-4, aux_lr: float = 1e-3,
-                 clip_max_norm: float = 1.0):
+                 clip_max_norm: float = 1.0, params=None):
+        """params: the (name, tensor) pairs to optimise in place of the
+        model's own parameters (parallel/sharding.py passes its shards)."""
         labels = param_labels(model)
-        trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        named = model.named_parameters() if params is None else params
+        trainable = [(n, p) for n, p in named if p.requires_grad]
         self.main_params = [p for n, p in trainable if labels[n] == "main"]
         self.aux_params = [p for n, p in trainable if labels[n] == "aux"]
         self.lr = lr
@@ -63,16 +66,19 @@ class Optimizers:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float, norm: torch.Tensor | None = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: where the global norm of the
     gradients is at least max_norm, each gradient g becomes
     g / norm * max_norm.  Returns the norm, on the gradients' device.
-    Two multi-tensor launches; where the norm is kept they divide and
-    multiply by 1, which leaves g's bits as they are."""
+    `norm` is the global norm when the caller takes it (over full tensors,
+    where the gradients are shards: parallel/sharding.py).  Two
+    multi-tensor launches; where the norm is kept they divide and multiply
+    by 1, which leaves g's bits as they are."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.nn.utils.get_total_norm(grads)
+    if norm is None:
+        norm = torch.nn.utils.get_total_norm(grads)
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))

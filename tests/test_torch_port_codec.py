@@ -251,19 +251,26 @@ def test_entry_points_raise_without_card(setup):
 @pytest.mark.parametrize("what", ["coder_mesh", "train_mesh", "eval_checkpoint",
                                   "other_model"])
 def test_unported_options_raise(setup, what, tmp_path):
-    """What the port still refuses: mesh-sharded coding and training on a
-    device mesh (the parallel/ slice), loading a checkpoint of the JAX
-    package (an Orbax directory), and a model of no family the codec
-    serves."""
+    """What the port does at each entry point that it once refused: a
+    coder_mesh that is not a DeviceMesh is refused as a wrong argument (the
+    sharded coder itself is tests/test_torch_port_sharded_coder.py), and a
+    TrainConfig with mesh axes constructs, held and read nowhere, as JAX's
+    is.  What it still refuses: a checkpoint of the JAX package (an Orbax
+    directory) and a model of no family the codec serves."""
     codec, _ = setup
-    with pytest.raises(NotImplementedError):
-        if what == "coder_mesh":
+    if what == "coder_mesh":
+        with pytest.raises(TypeError, match="DeviceMesh"):
             GranularCodec(codec.model, groups=2, coder_mesh=object(), device="cpu")
-        elif what == "train_mesh":
-            from progressivecodec_tpu_torch.config import TrainConfig
+        return
+    if what == "train_mesh":
+        from progressivecodec_tpu_torch.config import TrainConfig, to_json, train_config_from_json
 
-            TrainConfig(mesh_data=2)
-        elif what == "eval_checkpoint":
+        tcfg = TrainConfig(mesh_data=2, mesh_tile=4)
+        assert (tcfg.mesh_data, tcfg.mesh_tile) == (2, 4)
+        assert train_config_from_json(to_json(tcfg)) == tcfg
+        return
+    with pytest.raises(NotImplementedError):
+        if what == "eval_checkpoint":
             from progressivecodec_tpu_torch.cli import eval as eval_cli
 
             (tmp_path / "_CHECKPOINT_METADATA").write_text("{}")

@@ -37,7 +37,8 @@ def test_port_modules_load_no_jax():
                  "training.checkpoint", "cli.train", "cli.eval", "utils.rd", "models.warmstart",
                  "ops.noise", "coder.rans_cuda", "layers.importance", "layers.postnets",
                  "training.mask_trainer", "cli.rd_sweep", "utils.profiling", "utils.flops",
-                 "data.openimages"):
+                 "data.openimages", "parallel.distributed", "parallel.mesh",
+                 "parallel.sharded_coder", "parallel.tiling", "parallel.sharding"):
         assert f"{PACKAGE}.{must}" in imported, must
     leaked = [m for m in result["loaded"]
               if m.split(".")[0] in BANNED or m == "progressivecodec_tpu"

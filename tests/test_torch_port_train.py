@@ -438,6 +438,7 @@ def test_train_config_matches_jax():
         jax_config.to_json(jax_config.TrainConfig()))
     text = jax_config.to_json(dataclasses.replace(jax_config.TrainConfig(), lr=3e-4, epochs=7))
     assert port_config.train_config_from_json(text) == TrainConfig(lr=3e-4, epochs=7)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        port_config.train_config_from_json(jax_config.to_json(
-            dataclasses.replace(jax_config.TrainConfig(), mesh_data=4)))
+    # the mesh axes are held as JAX holds them (and read nowhere, as in JAX)
+    meshed = dataclasses.replace(jax_config.TrainConfig(), mesh_data=4, mesh_tile=2)
+    assert port_config.train_config_from_json(jax_config.to_json(meshed)) == TrainConfig(
+        mesh_data=4, mesh_tile=2)
