@@ -20,8 +20,11 @@ printing a result:
      {32, 64, 1024}, stages of P=0 and P=1 rows, symbols drawn from each
      row's distribution, the batch-8 grid of 15,648 rows, the global-table
      path); then the PCT1-G grouped decode kernel on the flagship-table
-     stages at (K, G) = (512, 4) and (512, 16) and on smaller stages at
-     (32, 4), (1024, 2), (64, 64) and (96, 3), escapes included;
+     stages at (K, G) = (512, 4), (512, 16) and (512, 2) and on smaller
+     stages at (32, 4), (1024, 2), (64, 64) and (96, 3), escapes included,
+     and the decode launches' split into prologue and rows on those stages
+     at G in {1, 2, 4, 16} (`scan_split`: device times of one-row and
+     full launches queued behind a sleep kernel);
   4. the main paths at full width, 768x512 seeded images, seeded random
      weights, compress -> serialize -> deserialize -> decompress: the
      flagship ModelConfig() at q in {0, 5, 10} (batch 1) and q=10 (batch 8)
@@ -110,6 +113,10 @@ printing a result:
      sharded coder at G=1 on CUDA tensors.  Two ranks time-share the card:
      no time of phase 9 is a scaling number.  Any failure in a rank exits
      nonzero, and every process started is stopped.
+`python3 chip_smoke.py --ab OTHER_CHECKOUT...` runs only `scan_split`, on
+other checkouts of the repo and on this one, in separate processes
+ordered others, this, this, others reversed (`ab_split`).
+
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
@@ -223,13 +230,12 @@ def stage_rows(codec, n_stages):
     return [(0, codec.gauss_row0)] + [(codec.gauss_row0, r)] * (n_stages - 1)
 
 
-def decode_wrapper_floor(dev, passes=9, lanes=LANES):
-    """The decode wrapper's host floor: the 12 decode launches of a round
-    trip with no rows, so the kernel returns at once and the CUDA-event time
-    is the host's.  Returns the ms for all 12 in each of `passes` passes.
-    It builds the flagship's coder tables without a model (a seeded
-    EntropyBottleneck(N) and the Gaussian rows), so it runs against any
-    checkout's package, to compare two of them."""
+def flagship_tables(dev):
+    """The flagship's coder tables without a model: a seeded
+    EntropyBottleneck(N) and the Gaussian rows.  Returns (merged host
+    tables, DeviceTables on `dev`, first Gaussian row).  It uses only
+    interfaces every checkout of the port has, so the functions built on it
+    run against any checkout's package, to compare two of them."""
     from progressivecodec_tpu_torch.coder import rans_device
     from progressivecodec_tpu_torch.coder.tables import merge_tables
     from progressivecodec_tpu_torch.config import ModelConfig
@@ -239,9 +245,19 @@ def decode_wrapper_floor(dev, passes=9, lanes=LANES):
     cfg = ModelConfig()
     eb = EntropyBottleneck(cfg.N, device="cpu")
     eb.reset_parameters(torch.Generator().manual_seed(SEED))
-    merged, _ = merge_tables(build_bottleneck_tables(eb.host_params()),
-                             build_gaussian_tables(cfg.scale_table.values()))
-    t = rans_device.DeviceTables.from_tables(merged, dev)
+    merged, starts = merge_tables(build_bottleneck_tables(eb.host_params()),
+                                  build_gaussian_tables(cfg.scale_table.values()))
+    return merged, rans_device.DeviceTables.from_tables(merged, dev), int(starts[1])
+
+
+def decode_wrapper_floor(dev, passes=9, lanes=LANES):
+    """The decode wrapper's host floor: the 12 decode launches of a round
+    trip with no rows, so the kernel returns at once and the CUDA-event time
+    is the host's.  Returns the ms for all 12 in each of `passes` passes, on
+    `flagship_tables`."""
+    from progressivecodec_tpu_torch.coder import rans_device
+
+    _, t, _ = flagship_tables(dev)
     stream = torch.zeros(2 * lanes, dtype=torch.int16, device=dev)
     dec0 = rans_device.decoder_init(stream, lanes)
     ig = torch.zeros((0, lanes), dtype=torch.int32, device=dev)
@@ -252,6 +268,115 @@ def decode_wrapper_floor(dev, passes=9, lanes=LANES):
             rans_device.decode_stage_scan(dec0, stream, ig, kg, t, lanes)
 
     return [cuda_time_ms(run, reps=20) for _ in range(passes)]
+
+
+# ~10 ms at the H100's clocks: longer than the host takes to queue the
+# launches timed behind it
+SLEEP_CYCLES = 20_000_000
+
+
+def queued_ms(fn, reps=7) -> float:
+    """Median device ms of `fn`'s launches run back to back: each rep queues
+    them behind a sleep kernel, so CUDA events see the device's time and not
+    the host's launch cost (the decode wrapper's ~40 us per launch is more
+    than a one-row launch takes on the card).  Fails if the host took longer
+    to queue them than the sleep lasted."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    times = []
+    for _ in range(reps):
+        ev[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[1].record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        torch.cuda.synchronize()
+        sleep_ms = ev[0].elapsed_time(ev[1])
+        require(host_ms < sleep_ms, f"queueing took {host_ms:.2f} ms, the sleep only {sleep_ms:.2f} ms")
+        times.append(ev[1].elapsed_time(ev[2]))
+    return sorted(times)[reps // 2]
+
+
+def scan_split(tables, t, row0, dev, groups=(1, 2, 4, 16), lanes=LANES):
+    """The decode launches' split into prologue and rows, on the 12
+    flagship-table stages (seed SEED + 7, as the grouped flagship case) at
+    K=`lanes`: for each G (1: the single stream's entry, else the grouped
+    one) the device ms of the 12 stages' zero-row launches (the launch: the
+    kernel returns before its prologue), one-row launches (the launch, the
+    prologue and one row) and full launches, each by `queued_ms` with every
+    stage's input state precomputed, and the ms of the 12 stages as a
+    dependent chain (`cuda_time_ms`, host included, as the `kernels`
+    line's ms).  Returns {G: dict}: ns_per_row_net is (full - one-row) over
+    the rows past each stage's first, prologue_us the one-row launch less
+    the zero-row launch and one such row, per stage."""
+    from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
+
+    stages = [tuple(a.to(dev) for a in s)
+              for s in flagship_stages(tables, row0, np.random.default_rng(SEED + 7))]
+    rows_of = [(0, row0)] + [(row0, t.offset.shape[0])] * (len(stages) - 1)
+    grids = [(rans_device._pad_to_grid(s_idx, lanes), rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes))
+             for _, s_idx, s_keep in stages]
+    n_rows = sum(ig.shape[0] for ig, _ in grids)
+    cluster_of = getattr(rans_cuda, "decode_cluster", None)  # None: a checkout without clusters
+    out = {}
+    for g in groups:
+        if g == 1:
+            stream, n_words, _, _ = rans_device.encode_stages(stages, t, lanes)
+            stream = stream[: int(n_words)]
+            dec = rans_device.decoder_init(stream, lanes)
+            state = (dec.states, dec.offset)
+
+            def launch(s, o, ig, kg, rows, stream=stream):
+                return rans_cuda.rans_decode_scan(s, o, stream, ig, kg, t.dec_sf, t.compact, rows)
+        else:
+            streams, n_words, _, _ = rans_device.encode_stages_grouped(stages, t, lanes, g)
+            dec = rans_device.grouped_decoder_init(streams, lanes, g)
+            state = (dec.states, dec.offsets)
+
+            def launch(s, o, ig, kg, rows, streams=streams):
+                return rans_cuda.rans_decode_scan_grouped(s, o, streams, ig, kg, t.dec_sf, t.compact, rows)
+        ins = []
+        for (ig, kg), rows in zip(grids, rows_of):
+            ins.append(state)
+            state = launch(*state, ig, kg, rows)[:2]
+        torch.cuda.synchronize()
+        require(torch.equal(state[1].cpu().reshape(-1), n_words.cpu().to(torch.int32).reshape(-1)),
+                f"split G={g}: the decoder did not consume every sub-stream")
+
+        def part(n):
+            for (s, o), (ig, kg), rows in zip(ins, grids, rows_of):
+                launch(s, o, ig[:n], kg[:n], rows)
+
+        def full():
+            for (s, o), (ig, kg), rows in zip(ins, grids, rows_of):
+                launch(s, o, ig, kg, rows)
+
+        def chain():
+            s, o = ins[0]
+            for (ig, kg), rows in zip(grids, rows_of):
+                s, o, _ = launch(s, o, ig, kg, rows)
+
+        zero_ms, one_ms, full_ms = queued_ms(lambda: part(0)), queued_ms(lambda: part(1)), queued_ms(full)
+        row_ns = 1e6 * (full_ms - one_ms) / (n_rows - len(grids))
+        kt = lanes // g
+        plan = rans_cuda.plan_decode(t.compact, rows_of[-1], rans_cuda.warp_lanes(kt), rans_cuda._smem_optin(0))
+        out[g] = dict(kt=kt, cluster=cluster_of(g) if cluster_of and g > 1 else None,
+                      smem_bytes=plan.smem_bytes, rows=n_rows, zero_row_ms=zero_ms, one_row_ms=one_ms,
+                      full_ms=full_ms, chain_ms=cuda_time_ms(chain, reps=10), ns_per_row_net=row_ns,
+                      prologue_us=1e3 * (one_ms - zero_ms) / len(grids) - 1e-3 * row_ns)
+    return out
+
+
+def log_split(split, label="") -> None:
+    for g, r in split.items():
+        log(f"  decode split{label} G={g} (kt={r['kt']}, cluster {r['cluster']}, {r['smem_bytes']} B shared "
+            f"memory per CTA), 12 flagship-table stages, P={r['rows']}: zero-row launches {r['zero_row_ms']:.4f} "
+            f"ms, one-row {r['one_row_ms']:.4f} ms, full {r['full_ms']:.4f} ms (device, queued): prologue "
+            f"{r['prologue_us']:.2f} us per stage, {r['ns_per_row_net']:.1f} ns per row net of it; as a chain "
+            f"{r['chain_ms']:.4f} ms")
 
 
 def check_kernels(codec, dev):
@@ -535,7 +660,7 @@ def grouped_case(label, codec, stages, rows_of, lanes, groups, dev, timed=True):
     log(f"  decode case grouped {label}: P={n_rows} K={lanes} G={groups} (kt={lanes // groups}), "
         f"{int(n_words.sum())} words, {int(n_escs.sum())} escapes: grouped kernel == plain twin, values "
         f"exact, stream_ok; decode {ms:.4f} ms ({1e6 * ms / n_rows:.1f} ns per row), "
-        f"{plan.smem_bytes} B shared memory per CTA")
+        f"{plan.smem_bytes} B shared memory per CTA, clusters of {rans_cuda.decode_cluster(groups)}")
     return n_rows, int(n_words.sum()) - 2 * lanes, ms, plain_ms
 
 
@@ -551,7 +676,9 @@ def check_grouped_cases(codec, dev):
     rows_of = stage_rows(codec, len(flag))
     n_rows, consumed, ms, plain_ms = grouped_case("flagship-table stages", codec, flag, rows_of,
                                                   LANES, 4, dev)
-    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 16, dev, timed=False)
+    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 16, dev)
+    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 2, dev, timed=False)
+    log_split(scan_split(tables, codec.device_tables, row0, dev))
     small = flagship_stages(tables, row0, np.random.default_rng(SEED + 8))
     small = [small[0], small[1], tuple(a[:50_000] for a in small[-1])]
     for lanes, groups in ((32, 4), (1024, 2), (64, 64), (96, 3)):
@@ -1739,11 +1866,46 @@ def seeded_model(cfg, dev, seed=SEED):
     return model
 
 
+_AB_JOB = """
+import importlib.util, json, sys
+import torch
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+m = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(m)
+from progressivecodec_tpu_torch import build
+build.build()
+dev = torch.device("cuda")
+print("SPLIT " + json.dumps(m.scan_split(*m.flagship_tables(dev), dev)))
+"""
+
+
+def ab_split(others) -> None:
+    """`scan_split` of other checkouts of the repo (e.g. the parent commit
+    unpacked by `git archive` into build/) against this one, one process
+    each, in the order others, this, this, others reversed, on one card;
+    each builds its own kernels."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = [("other", o) for o in others] + [("this", here)] * 2 + [("other", o) for o in others[::-1]]
+    for label, tree in order:
+        out = subprocess.run([sys.executable, "-c", _AB_JOB, os.path.join(here, "chip_smoke.py")],
+                             cwd=tree, capture_output=True, text=True, timeout=900)
+        require(out.returncode == 0, f"split of {tree} failed:\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+        split = json.loads(out.stdout.split("SPLIT ")[-1].splitlines()[0])
+        log_split({int(g): r for g, r in split.items()}, f" [{label}: {tree}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--ab"]:
+        log(f"nvidia-smi: {nvidia_smi_line()}")
+        ab_split(sys.argv[2:])
+        return 0
 
     from progressivecodec_tpu_torch import build
     from progressivecodec_tpu_torch.config import ModelConfig

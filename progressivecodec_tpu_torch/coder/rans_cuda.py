@@ -6,7 +6,7 @@
                             (csrc/rans_decode.cu)
   rans_decode_scan_grouped  replaces coder/rans_device.py:decode_stage_grouped,
                             the PCT1-G scan (csrc/rans_decode.cu, one CTA
-                            per group)
+                            per group, in clusters of `decode_cluster(G)`)
 
 Each wrapper takes its route from the device of its tensors: a CPU tensor
 goes to the plain twin, a CUDA tensor launches the kernel.  On CUDA there
@@ -19,7 +19,8 @@ nothing for torch.uint32.  The twins compute in int64 and mask to 32 bits;
 the kernels read the same bits as uint32_t / uint16_t.
 
 The decode kernel finds each symbol in a compact CDF table that it brings
-into shared memory (`plan_decode` sizes it); its twin reads the 64 MiB
+into shared memory (`plan_decode` sizes it; the grouped launch by bulk
+copies multicast over a thread-block cluster); its twin reads the 64 MiB
 `dec_sf` table, so the two reach the symbol by different routes.
 """
 
@@ -206,6 +207,7 @@ def rans_decode_scan_grouped_plain(states: torch.Tensor, offsets: torch.Tensor,
 DECODE_REFILL = 4  # rows from a ring refill to the next (kRefill)
 DECODE_SLOTS = 2 * DECODE_REFILL + 1  # rows of idx / keep in the ring (kSlots)
 STREAM_CHUNK = 256  # stream words per warp copy (kChunk)
+MAX_CLUSTER = 8  # CTAs per cluster, the portable size (kMaxCluster)
 SHIFTS = range(6, 17)  # bucket widths 2^6 .. 2^16 cums
 RUN_FLAG = 1 << 15  # bucket of freq-1 symbols only (kRunFlag)
 
@@ -303,7 +305,14 @@ def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_i
     total = 64  # warp counts
     if table_in_smem:
         total += r16(nrows * 2) + r16(span_len * 2) + r16(nrows * bucket_stride * 2)
-    return total + DECODE_SLOTS * lanes * 5 + ring_words * 2
+    return total + DECODE_SLOTS * lanes * 5 + ring_words * 2 + 16  # the rings, the table's mbarrier
+
+
+def decode_cluster(groups: int) -> int:
+    """CTAs per thread-block cluster of a grouped decode launch with an
+    on-chip table: the largest divisor of `groups` up to MAX_CLUSTER (1 for
+    a prime above it)."""
+    return max(c for c in range(1, min(groups, MAX_CLUSTER) + 1) if groups % c == 0)
 
 
 def warp_lanes(kt: int) -> int:
@@ -403,8 +412,10 @@ def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, stream
                              smem_cap: int | None = None):
     """Same contract as `rans_decode_scan_grouped_plain`; for CUDA tensors
     one launch of G CTAs, one per group, of kt lanes rounded up to whole
-    warps (any 1 <= kt <= 1024).  `compact`, `rows` and `smem_cap` as for
-    `rans_decode_scan`; the plan is made at the CTA's width."""
+    warps (any 1 <= kt <= 1024), in clusters of `decode_cluster(G)` CTAs
+    that share the on-chip table's copies (no cluster on the global-table
+    path).  `compact`, `rows` and `smem_cap` as for `rans_decode_scan`; the
+    plan is made at the CTA's width."""
     dev = states.device
     _check("states", states, torch.int32, 1, dev)
     _check("offsets", offsets, torch.int32, 1, dev)
@@ -442,20 +453,22 @@ def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, stream
         in_group, in_row = kt, k
     streams, idx, kp = _aligned(streams), _aligned(idx), _aligned(kp)
     buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
+    cluster = decode_cluster(g) if plan.table_in_smem else 1
     states_out = torch.empty((k,), dtype=torch.int32, device=dev)
     offsets_out = torch.empty((g,), dtype=torch.int32, device=dev)
     cums = torch.empty((p, k), dtype=torch.int32, device=dev)
     ci, cl = ctypes.c_int, ctypes.c_longlong
     fn = _fn("rans_decode", "rans_decode_scan_grouped", _VP, _VP, _VP, cl, _VP, _VP, cl, ci,
-             _VP, _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, ci, ci, _VP)
+             _VP, _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, ci, ci, ci, _VP)
     rc = fn(states.data_ptr(), offsets.data_ptr(), streams.data_ptr(), streams.shape[1],
             idx.data_ptr(), kp.data_ptr(), in_group, in_row, compact.starts.data_ptr(), buckets,
             compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
             plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
-            states_out.data_ptr(), offsets_out.data_ptr(), cums.data_ptr(), p, g, kt, lanes,
+            states_out.data_ptr(), offsets_out.data_ptr(), cums.data_ptr(), p, g, kt, lanes, cluster,
             _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"rans_decode_scan_grouped kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"rans_decode_scan_grouped kernel launch failed (clusters of {cluster}): "
+                           f"cudaError {rc}")
     rans_decode_scan_grouped.launches += 1
     return states_out, offsets_out, cums
 

@@ -26,17 +26,23 @@
 // every group: CTA g is group g.  The single stream is the case G = 1.
 //
 // What bounds it: the lanes are coupled through that prefix count and the
-// shared offset, so the time is P times the latency of one row; the bytes
-// it moves (about 9 per cell) would take a few microseconds.  On this
-// design the row is a chain of dependent shared-memory loads (bucket,
-// search steps for the worst of the K lanes, starts, counts, ring word),
-// and the K/32 warps share one SM's shared-memory pipe; PERF.md (PR 2)
-// gives the measured time per row and its split.
+// shared offset, so a launch takes P times the latency of one row plus a
+// prologue that brings the stage's table on chip, not bytes: the bytes it
+// moves (about 9 per cell) would take a few microseconds.  The row is a
+// chain of dependent shared-memory loads (bucket, search steps for the
+// worst of the K lanes, starts, counts, ring word), and the K/32 warps share
+// one SM's shared-memory pipe; PERF.md gives the row's split.  The
+// prologue, split on an H100 (chip_smoke.scan_split: one-row less zero-row
+// launches, less one row; PERF.md), took 2.5 us per stage for the
+// single stream, and before the grouped redesign below 2.6 / 3.3 / 9.7 us
+// at G = 2 / 4 / 16 (kt = 256 / 128 / 32: the CTA's own warps issued
+// ~12,000 16-byte cp.async, one warp alone at G = 16); after it 2.4 / 2.4 /
+// 2.6 us, beside ~163 rows per stage at 440-715 ns each.
 //
 // What the design does about it: one CTA of kt threads per group (rounded
 // up to whole warps; a padding thread keeps nothing, takes no word and
 // stores nothing), one lane each, and nothing but shared memory on the
-// row's dependent chain.  Every CTA brings the stage's table on chip.
+// row's dependent chain.
 //   * The stage's CDF rows (starts as u16, the row's n+1 entries, the last
 //     one 65536 stored as 0) come into dynamic shared memory at launch, with
 //     a bucket table per row: bucket b holds the symbol at cum = b << shift,
@@ -46,8 +52,33 @@
 //     empty for most cells; the search loop is warp-uniform.  The host
 //     picks the finest shift that fits the budget and builds the stage's
 //     bucket table at that shift on first use (rans_cuda.CompactCdf).
+//   * The grouped launch's table (190-227 KB at K=512) comes by bulk
+//     copies completed on an mbarrier, not by thousands of 16-byte cp.async
+//     from the CTA's own threads: one thread arms the barrier with the
+//     table's bytes, the first warp issues the copies, they land while the
+//     rings' cp.async prologue runs, and row 0 waits on the barrier's
+//     phase.  Its G CTAs run as thread-block clusters of c CTAs (c the
+//     largest divisor of G up to 8, rans_cuda.decode_cluster; each CTA is a
+//     whole SM of one GPC, since the table takes nearly all of its shared
+//     memory): each CTA issues 1/c of the table multicast to every CTA of
+//     its cluster, so L2 serves the table once per cluster (0.5-0.8 us per
+//     stage less than the same copies without a cluster).  A relaxed
+//     cluster barrier after every CTA has armed its barrier (whose
+//     initialisation fence.mbarrier_init releases to the cluster) orders
+//     the multicasts after their targets' arming; a cluster of one runs the
+//     same barriers (ordering thread 0's arming before its warp's copies),
+//     which the card measured no slower than skipping them.  A second,
+//     split cluster barrier (arrive once the CTA's table has landed, wait
+//     before exit) keeps a CTA from exiting while a multicast copy it
+//     issued may still be writing into a peer: distributed shared memory
+//     must not be accessed after its CTA exits, and a CTA's own barrier
+//     only says that its own copy has landed.  The arrive is off the row's chain, and by
+//     exit every peer has long arrived.  The single stream keeps its
+//     threads' cp.async prologue: its 16 warps take 2.5 us, and the bulk
+//     copies without a cluster took 2.9 us at G = 2 and 4.
 //   * A stage whose rows do not fit at any shift runs the same search over
-//     the compact table in global memory (table_in_smem = 0).
+//     the compact table in global memory (table_in_smem = 0), copies no
+//     table and launches without a cluster.
 //   * The stream ahead of offset lives in a ring in shared memory, refilled
 //     by cp.async 256 words per warp every kRefill rows, kRefill rows before
 //     it is read (one commit and one wait per refill); reads past the end
@@ -61,6 +92,14 @@
 //     count is one byte in shared memory, so after the one __syncthreads of
 //     the row lane l of every warp reads warp l's count and two
 //     __reduce_add_sync give the counts below the warp and the total.
+//   * A group of one warp (kt <= 32, kOneWarp) takes the rank and the total
+//     from its ballot alone: no count bytes, no __syncthreads and no
+//     __reduce_add_sync on its row.  Its lanes read each other's ring
+//     copies, so a refill row waits for its copies and then __syncwarp()s,
+//     which also orders the ring slots' earlier reads before their refill.
+//     At kt = 32 it took 439 ns against 531 ns before the redesign; in an
+//     earlier build of this kernel, 458 ns against 498 ns with the exchange
+//     row (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +114,7 @@ constexpr int kDepth = kRefill + 2;       // rows of idx / keep loaded ahead
 constexpr int kSlots = kDepth + kRefill - 1;  // rows of idx / keep in the ring
 constexpr int kChunk = 256;               // stream words per warp copy: 32 threads x 16 B
 constexpr uint32_t kRunFlag = 0x8000u;    // bucket of freq-1 symbols only
+constexpr uint32_t kBulkBytes = 8192;     // table bytes per bulk copy
 
 struct DecodeArgs {
   const uint32_t* states_in;  // (K,)
@@ -100,7 +140,7 @@ struct DecodeArgs {
 };
 
 struct Layout {
-  int bases, starts, buckets, idx, kp, ring, total;
+  int bases, starts, buckets, idx, kp, ring, bar, total;
 };
 
 __host__ __device__ inline int round16(int b) { return (b + 15) & ~15; }
@@ -123,6 +163,11 @@ __host__ __device__ inline Layout layout(const DecodeArgs& a, bool table_in_smem
   off += kSlots * a.lanes;
   l.ring = off;
   off += a.ring_words * 2;
+  // the table's mbarrier last: placed after the warp counts, it shifts every
+  // region by 16 bytes, and the card measured the single stream's prologue
+  // 1.2 us and the grouped row up to 40 ns slower so (PERF.md)
+  l.bar = off;
+  off += 16;
   l.total = off;
   return l;
 }
@@ -136,6 +181,70 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The table's completion barrier, its bulk copies and the cluster.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// Relaxed: the arrivals order no memory (fence.mbarrier_init releases the
+// barriers' initialisation to the cluster).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// The table's copies: `bytes` at src into the same offsets of dst in every
+// CTA of the cluster, completing on each CTA's barrier at `bar`, in chunks
+// of kBulkBytes.  Chunk k is issued by CTA k % ncta, lane (k / ncta) % 32
+// of its first warp; the caller is that warp.
+__device__ __forceinline__ void bulk_table(void* dst, const void* src, uint32_t bytes, uint64_t* bar,
+                                           uint32_t rank, uint32_t ncta, int wl) {
+  const uint32_t n = (bytes + kBulkBytes - 1) / kBulkBytes;
+  const uint16_t mask = static_cast<uint16_t>((1u << ncta) - 1u);
+  for (uint32_t k = rank + ncta * wl; k < n; k += 32 * ncta) {
+    const uint32_t off = k * kBulkBytes, len = min(kBulkBytes, bytes - off);
+    const uint32_t d = smem_u32(static_cast<unsigned char*>(dst) + off);
+    const void* s = static_cast<const unsigned char*>(src) + off;
+    if (ncta == 1)
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                   ::"r"(d), "l"(s), "r"(len), "r"(smem_u32(bar))
+                   : "memory");
+    else
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+          " [%0], [%1], %2, [%3], %4;\n" ::"r"(d),
+          "l"(s), "r"(len), "r"(smem_u32(bar)), "h"(mask)
+          : "memory");
+  }
 }
 
 // This thread's share of a refill of kRefill rows of idx and keep: one
@@ -187,12 +296,14 @@ __device__ __forceinline__ void issue_chunk(const DecodeArgs& a, const uint16_t*
 }
 
 // kGrouped = false is the single stream: one CTA, kt = lanes, so the group
-// offsets and the padding tests compile away.
-template <bool kSmemTable, bool kGrouped>
+// offsets and the padding tests compile away.  kOneWarp: a grouped CTA of
+// one warp (lanes == 32).
+template <bool kSmemTable, bool kGrouped, bool kOneWarp>
 __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(a, kSmemTable);
   uint8_t* counts = smem;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + l.bar);  // the table's copies
   uint16_t* base_s = reinterpret_cast<uint16_t*>(smem + l.bases);  // rows' first entries
   uint16_t* starts_s = reinterpret_cast<uint16_t*>(smem + l.starts);
   uint16_t* bucket_s = reinterpret_cast<uint16_t*>(smem + l.buckets);
@@ -202,6 +313,8 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
 
   const int t = threadIdx.x;
   const int g = kGrouped ? blockIdx.x : 0;  // the group
+  // kept at run time in the one-warp row too: with lanes = 32 and warp = 0
+  // compiled in, its row ran ~80 ns slower on the card (PERF.md)
   const int lanes = a.lanes;
   const int warp = t >> 5;
   const int wl = t & 31;
@@ -217,19 +330,29 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
 
   uint32_t x = live ? a.states_in[lane] : kRansL;
   int offset = a.offset_in[g];
+  // the same for every CTA of a launch, so a cluster returns here whole
   if (a.rows == 0) {
     if (live) a.states_out[lane] = x;
     if (t == 0) a.offset_out[g] = offset;
     return;
   }
 
-  // ---- prologue: tables, the first kDepth rows, a full stream ring
+  // ---- prologue: the table (by bulk copies in the grouped launch, by the
+  // CTA's cp.async in the single stream), the first kDepth rows and a full
+  // stream ring by cp.async, all in flight together
+  constexpr bool kBulk = kSmemTable && kGrouped;
+  const uint32_t ncta = kBulk ? cluster_size() : 1u;
+  const uint32_t starts_bytes = 2u * a.span_len;
+  const uint32_t bucket_bytes = 2u * a.nrows * a.bucket_stride;
+  if (kBulk && t == 0) mbar_arm(bar, starts_bytes + bucket_bytes);
   for (int e = t; e < 64; e += lanes) counts[e] = 0;
   if (kSmemTable) {
     for (int e = t; e < a.nrows; e += lanes) {
       const int2 m = a.meta[a.row0 + e];
       base_s[e] = static_cast<uint16_t>(m.x - a.span_base);
     }
+  }
+  if (kSmemTable && !kBulk) {
     for (int c = t; c < a.span_len / 8; c += lanes)
       cp_async16(starts_s + 8 * c, a.starts + a.span_base + 8 * c, 16);
     for (int c = t; c < a.nrows * a.bucket_stride / 8; c += lanes)
@@ -242,8 +365,23 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   for (int c = warp; c < ring_chunks; c += nwarps) issue_chunk(a, stream, ring, filled + c);
   filled += ring_chunks;
   cp_async_commit();
+  if (kBulk) {
+    // every CTA of the cluster has armed its barrier before any copy lands
+    // (in a cluster of one: the issuing warp sees thread 0's arming)
+    cluster_arrive();
+    cluster_wait();
+    if (warp == 0) {
+      const uint32_t rank = cluster_rank();
+      bulk_table(starts_s, a.starts + a.span_base, starts_bytes, bar, rank, ncta, wl);
+      bulk_table(bucket_s, a.buckets, bucket_bytes, bar, rank, ncta, wl);
+    }
+  }
   cp_async_wait<0>();
   __syncthreads();
+  if (kBulk) {
+    mbar_wait(bar, 0);
+    cluster_arrive();  // this CTA's table has landed; waited on at exit
+  }
 
   // this lane's inputs of row rr: keep, its CDF row's entries and buckets
   struct RowIn {
@@ -312,16 +450,26 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     uint32_t adv = (next - start) * (x >> 16) + cum - start;
     const bool flag = keep && adv < kRansL;
     const unsigned ballot = __ballot_sync(0xFFFFFFFFu, flag);
-    uint8_t* cnt = counts + 32 * (r & 1);
-    if (wl == 0) cnt[warp] = static_cast<uint8_t>(__popc(ballot));
-    // the copies of the last refill, kRefill rows ago, have landed
-    if (r % kRefill == 0) cp_async_wait<0>();
-    __syncthreads();
-
-    // lane l holds warp l's count (0 past the last warp); two warp sums
-    const uint32_t c = cnt[wl];
-    const uint32_t before = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c : 0u);
-    const uint32_t total = __reduce_add_sync(0xFFFFFFFFu, c);
+    uint32_t before, total;
+    if (kOneWarp) {
+      // the copies of the last refill, kRefill rows ago, have landed, and
+      // every lane's reads of the slots refilled below are done
+      if (r % kRefill == 0) {
+        cp_async_wait<0>();
+        __syncwarp();
+      }
+      before = 0u;
+      total = __popc(ballot);
+    } else {
+      uint8_t* cnt = counts + 32 * (r & 1);
+      if (wl == 0) cnt[warp] = static_cast<uint8_t>(__popc(ballot));
+      if (r % kRefill == 0) cp_async_wait<0>();
+      __syncthreads();
+      // lane l holds warp l's count (0 past the last warp); two warp sums
+      const uint32_t c = cnt[wl];
+      before = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c : 0u);
+      total = __reduce_add_sync(0xFFFFFFFFu, c);
+    }
     // every lane reads (the ring index is masked), only flagged lanes use it
     const uint32_t word = ring[(offset + static_cast<int>(before) + __popc(ballot & below)) & ring_mask];
     if (flag) adv = (adv << 16) | word;
@@ -344,15 +492,18 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   cp_async_wait<0>();
   if (live) a.states_out[lane] = x;
   if (t == 0) a.offset_out[g] = offset;
+  // every peer's table has landed: no copy issued here still writes there
+  if (kBulk) cluster_wait();
 }
 
 constexpr int kMaxDevices = 64;
+constexpr int kMaxCluster = 8;  // the portable cluster size
 
-template <bool kSmemTable, bool kGrouped>
-int launch(const DecodeArgs& a, int groups, int smem_cap, cudaStream_t stream) {
+template <bool kSmemTable, bool kGrouped, bool kOneWarp>
+int launch(const DecodeArgs& a, int groups, int cluster, int smem_cap, cudaStream_t stream) {
   const int bytes = layout(a, kSmemTable).total;
   if (bytes > smem_cap) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = rans_decode_scan_kernel<kSmemTable, kGrouped>;
+  auto kernel = rans_decode_scan_kernel<kSmemTable, kGrouped, kOneWarp>;
   // lift the kernel's dynamic shared-memory limit to the device's opt-in
   // maximum, once per device (setting it twice from racing threads is
   // harmless)
@@ -368,18 +519,36 @@ int launch(const DecodeArgs& a, int groups, int smem_cap, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) lifted[device].store(true, std::memory_order_relaxed);
   }
-  kernel<<<groups, a.lanes, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  // the grouped shared-table path runs as clusters of `cluster` CTAs; the
+  // single stream and the global-table path copy no table by bulk copies
+  // and have none
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups);
+  cfg.blockDim = dim3(a.lanes);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = kSmemTable && kGrouped ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  const cudaError_t last = cudaGetLastError();  // and clear it
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // Checks shared by both entries, then the launch of `groups` CTAs.
 template <bool kGrouped>
-int run(DecodeArgs& a, int groups, const void* starts, const void* buckets, const void* meta, int row0,
-        int nrows, int span_base, int span_len, int shift, int bucket_stride, int ring_words,
+int run(DecodeArgs& a, int groups, int cluster, const void* starts, const void* buckets, const void* meta,
+        int row0, int nrows, int span_base, int span_len, int shift, int bucket_stride, int ring_words,
         int table_in_smem, int smem_cap, void* states_out, void* offset_out, void* cums, int rows,
         void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (groups < 1 || a.kt < 1 || a.kt > 1024 || a.lanes % 32 || a.lanes < a.kt || a.lanes - a.kt >= 32)
+    return bad;
+  if (cluster < 1 || cluster > kMaxCluster || groups % cluster || (!table_in_smem && cluster != 1))
     return bad;
   if (ring_words < 2 * kRefill * a.lanes + kChunk || (ring_words & (ring_words - 1)) != 0 || nrows < 1)
     return bad;
@@ -402,8 +571,14 @@ int run(DecodeArgs& a, int groups, const void* starts, const void* buckets, cons
   a.cums = static_cast<int32_t*>(cums);
   a.rows = rows;
   auto s = static_cast<cudaStream_t>(stream);
-  return table_in_smem ? launch<true, kGrouped>(a, groups, smem_cap, s)
-                       : launch<false, kGrouped>(a, groups, smem_cap, s);
+  // the one-warp row is the grouped launch's (kGrouped as kOneWarp: the
+  // single stream instantiates no one-warp kernel)
+  const bool one_warp = kGrouped && a.lanes == 32;
+  if (table_in_smem)
+    return one_warp ? launch<true, kGrouped, kGrouped>(a, groups, cluster, smem_cap, s)
+                    : launch<true, kGrouped, false>(a, groups, cluster, smem_cap, s);
+  return one_warp ? launch<false, kGrouped, kGrouped>(a, groups, 1, smem_cap, s)
+                  : launch<false, kGrouped, false>(a, groups, 1, smem_cap, s);
 }
 
 }  // namespace
@@ -437,13 +612,16 @@ extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
   a.in_row = lanes;
   a.kt = lanes;
   a.lanes = lanes;
-  return run<false>(a, 1, starts, buckets, meta, row0, nrows, span_base, span_len, shift, bucket_stride,
-             ring_words, table_in_smem, smem_cap, states_out, offset_out, cums, rows, stream);
+  return run<false>(a, 1, 1, starts, buckets, meta, row0, nrows, span_base, span_len, shift,
+                    bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out, cums,
+                    rows, stream);
 }
 
 // G = `groups` streams of kt lanes each (K = groups * kt lanes in all),
 // one CTA of `lanes` threads each (kt rounded up to whole warps, kt <=
-// 1024).  states_in (K,), offset_in (G,), streams (G, row_words) with
+// 1024), in clusters of `cluster` CTAs (1 <= cluster <= 8, a divisor of G;
+// 1 on the global-table path).  A cluster that cannot be scheduled fails
+// the launch.  states_in (K,), offset_in (G,), streams (G, row_words) with
 // row_words % 8 == 0; group g's idx / kp block starts at element
 // g * in_group and its rows lie in_row elements apart (in_row, in_group
 // multiples of 16); cums (rows, K).
@@ -454,7 +632,8 @@ extern "C" int rans_decode_scan_grouped(const void* states_in, const void* offse
                                         int row0, int nrows, int span_base, int span_len, int shift,
                                         int bucket_stride, int ring_words, int table_in_smem,
                                         int smem_cap, void* states_out, void* offset_out, void* cums,
-                                        int rows, int groups, int kt, int lanes, void* stream) {
+                                        int rows, int groups, int kt, int lanes, int cluster,
+                                        void* stream) {
   if (row_words % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte aligned rows
   DecodeArgs a;
   a.states_in = static_cast<const uint32_t*>(states_in);
@@ -467,6 +646,7 @@ extern "C" int rans_decode_scan_grouped(const void* states_in, const void* offse
   a.in_row = in_row;
   a.kt = kt;
   a.lanes = lanes;
-  return run<true>(a, groups, starts, buckets, meta, row0, nrows, span_base, span_len, shift, bucket_stride,
-             ring_words, table_in_smem, smem_cap, states_out, offset_out, cums, rows, stream);
+  return run<true>(a, groups, cluster, starts, buckets, meta, row0, nrows, span_base, span_len, shift,
+                   bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out, cums,
+                   rows, stream);
 }

@@ -129,6 +129,41 @@ def test_int_bit_pattern_helpers_round_trip():
                                   (w.numpy() & 0xFFFF).astype(np.uint16))
 
 
+@pytest.mark.parametrize("groups", range(1, 18))
+def test_decode_cluster_is_the_largest_divisor_up_to_eight(groups):
+    c = rans_cuda.decode_cluster(groups)
+    assert groups % c == 0 and 1 <= c <= rans_cuda.MAX_CLUSTER == 8
+    assert not any(groups % d == 0 for d in range(c + 1, min(groups, 8) + 1))
+
+
+@pytest.mark.parametrize("table_in_smem", [True, False])
+def test_decode_smem_bytes_counts_the_table_barrier(table_in_smem):
+    """The kernel's layout: 64 bytes of warp counts, the table (rows' bases,
+    starts, buckets, each padded to 16 bytes), the idx / keep ring, the
+    stream ring and the table's mbarrier in a 16-byte slot."""
+    lanes, nrows, span, stride, ring = 128, 3, 40, 24, 2048
+    table = (16 + 80 + 3 * 24 * 2) if table_in_smem else 0
+    assert rans_cuda.decode_smem_bytes(lanes, nrows, span, stride, ring, table_in_smem) == (
+        64 + table + rans_cuda.DECODE_SLOTS * lanes * 5 + 2 * ring + 16)
+
+
+@pytest.mark.parametrize("lanes,groups", [(64, 8), (48, 16), (88, 11), (96, 6)])
+def test_grouped_wrapper_on_cpu_takes_the_twin_at_cluster_shapes(tables, lanes, groups):
+    """Whatever cluster a CUDA launch would take, CPU tensors go to the twin
+    and count no launch."""
+    merged, t = tables
+    st = [tuple(torch.from_numpy(a) for a in _stage(merged, 400, groups))]
+    streams, _, _, _ = rans_device.encode_stages_grouped(st, t, lanes, groups)
+    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    ig = rans_device._pad_to_grid(st[0][1], lanes)
+    kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes)
+    before = rans_cuda.rans_decode_scan_grouped.launches
+    got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert rans_cuda.rans_decode_scan_grouped.launches == before
+
+
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic, emulated in numpy
 # ---------------------------------------------------------------------------
@@ -415,7 +450,14 @@ def _grouped_on_card(tables_np, device, lanes, groups, n, seed, smem_cap=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes,groups,n", [(512, 4, 30000), (512, 16, 20000), (32, 4, 3000),
                                             (1024, 2, 20000), (64, 64, 5000), (96, 3, 4000),
-                                            (64, 4, 0)])
+                                            (64, 4, 0),
+                                            # clusters of 2, 3, 6, 8, 8, 6 and 8 CTAs at kt 128,
+                                            # 8, 32, 8, 128, 32 and 1 (kt % 16 != 0: staged)
+                                            (256, 2, 20000), (24, 3, 3000), (192, 6, 12000),
+                                            (64, 8, 5000), (1024, 8, 20000), (384, 12, 12000),
+                                            (16, 16, 2000),
+                                            # primes above 8: clusters of one
+                                            (88, 11, 3000), (416, 13, 10000)])
 def test_grouped_decode_kernel_matches_twin(cuda_device, tables, lanes, groups, n):
     _grouped_on_card(tables[0], cuda_device, lanes, groups, n, lanes + groups)
 
@@ -425,6 +467,18 @@ def test_grouped_decode_kernel_global_table_path(cuda_device, tables):
     tables_np = tables[0]
     _grouped_on_card(tables_np, cuda_device, 512, 4, 20000, 3,
                      smem_cap=_smem_cap(tables_np, 128, "global"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,groups", [("coarse", 4), ("coarse", 16), ("global", 16)])
+def test_grouped_decode_kernel_under_a_cap(cuda_device, tables, path, groups):
+    """A cap that forces the coarse shift (clusters of 4 and 8, kt=128 and
+    the one-warp row at kt=32), and the one-warp row on the global-table
+    path (no cluster)."""
+    tables_np = tables[0]
+    kt = 512 // groups
+    _grouped_on_card(tables_np, cuda_device, 512, groups, 20000, 4,
+                     smem_cap=_smem_cap(tables_np, kt, path))
 
 
 @pytest.mark.cuda
