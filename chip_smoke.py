@@ -112,16 +112,33 @@ printing a result:
      `initialize_from_env`: `allreduce_metrics`, an all_reduce, and the
      sharded coder at G=1 on CUDA tensors.  Two ranks time-share the card:
      no time of phase 9 is a scaling number.  Any failure in a rank exits
-     nonzero, and every process started is stopped.
-`python3 chip_smoke.py --ab OTHER_CHECKOUT...` runs only `scan_split`, on
-other checkouts of the repo and on this one, in separate processes
-ordered others, this, this, others reversed (`ab_split`).
+     nonzero, and every process started is stopped;
+ 10. every lane count the JAX coder takes: the 12 flagship-table stages
+     re-gridded as one stream at K in {1024, 2048, 4096, 8192, 16384} (one
+     CTA; clusters of 8 CTAs; a cooperative grid of 16 CTAs; a spanning
+     stream's CTAs read their words from global memory)
+     and three smaller stages at K in {48, 1056, 4100}, each decode kernel
+     against its twin bit for bit, values exact, stream_ok, CUDA-event ms
+     and ns per row; PCT1-G groups of kt = 2048 and 1025 (staged); the row
+     and the exchange split (`scan_split` of a stream spanning C CTAs of w
+     lanes against C one-CTA groups of w lanes on the same rows); flagship round trips at K=2048 (batch 8, q=10), K=48 (batch
+     1, q=5) and K=16384 (batch 8, q=10), each with stream_ok and y_hat
+     bit-exact, the cluster and grid launches counted; then
+     `tools.bench_coder` over K in {512, 1024, 2048, 4096}.
+`python3 chip_smoke.py --ab [--lanes K,...] OTHER_CHECKOUT...` runs only
+`scan_split`, on other checkouts of the repo and on this one, in separate
+processes ordered others, this, this, others reversed (`ab_split`): at the
+flagship's K=512 for G in {1, 2, 4, 16}, or the single stream at each K
+given.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
-(phase 8's map-ranked round trip) and `rd_sweep_launches`; every entry
-carries `sharded_launches`, the launches phase 9's ranks made.
+(phase 8's map-ranked round trip) and `rd_sweep_launches`; the first three
+entries carry `sharded_launches`, the launches phase 9's ranks made.  The
+spanning decode's two instances follow, `rans_decode_scan_cluster` (timed
+at K=2048, its launches from the K=2048 round trip) and
+`rans_decode_scan_grid` (K=16384).
 """
 
 from __future__ import annotations
@@ -363,7 +380,11 @@ def scan_split(tables, t, row0, dev, groups=(1, 2, 4, 16), lanes=LANES):
         row_ns = 1e6 * (full_ms - one_ms) / (n_rows - len(grids))
         kt = lanes // g
         plan = rans_cuda.plan_decode(t.compact, rows_of[-1], rans_cuda.warp_lanes(kt), rans_cuda._smem_optin(0))
-        out[g] = dict(kt=kt, cluster=cluster_of(g) if cluster_of and g > 1 else None,
+        ctas, grid = getattr(plan, "ctas", 1), getattr(plan, "grid", False)
+        cluster = (None if grid else ctas) if ctas > 1 else cluster_of(g) if cluster_of and g > 1 else None
+        out[g] = dict(kt=kt, cluster=cluster, ctas=ctas,
+                      cta_lanes=plan.cta_lanes if ctas > 1 else rans_cuda.warp_lanes(kt),
+                      route="grid" if grid else "cluster" if ctas > 1 else "one CTA",
                       smem_bytes=plan.smem_bytes, rows=n_rows, zero_row_ms=zero_ms, one_row_ms=one_ms,
                       full_ms=full_ms, chain_ms=cuda_time_ms(chain, reps=10), ns_per_row_net=row_ns,
                       prologue_us=1e3 * (one_ms - zero_ms) / len(grids) - 1e-3 * row_ns)
@@ -372,11 +393,28 @@ def scan_split(tables, t, row0, dev, groups=(1, 2, 4, 16), lanes=LANES):
 
 def log_split(split, label="") -> None:
     for g, r in split.items():
-        log(f"  decode split{label} G={g} (kt={r['kt']}, cluster {r['cluster']}, {r['smem_bytes']} B shared "
+        span = (f", {r['ctas']} CTAs of {r['cta_lanes']} as a {r['route']}" if r.get("ctas", 1) > 1 else "")
+        log(f"  decode split{label} G={g} (kt={r['kt']}{span}, cluster {r['cluster']}, {r['smem_bytes']} B shared "
             f"memory per CTA), 12 flagship-table stages, P={r['rows']}: zero-row launches {r['zero_row_ms']:.4f} "
             f"ms, one-row {r['one_row_ms']:.4f} ms, full {r['full_ms']:.4f} ms (device, queued): prologue "
             f"{r['prologue_us']:.2f} us per stage, {r['ns_per_row_net']:.1f} ns per row net of it; as a chain "
             f"{r['chain_ms']:.4f} ms")
+
+
+def decode_bound(t, rows_of, cells, consumed, lanes, groups=1):
+    """(bound ms, bound_by) of a decode over `cells` cells: idx, keep and
+    cums per cell, each stage's compact table once, the payload words
+    consumed, each stage's states and offsets in and out, at 3.35 TB/s,
+    against ~12 INT32 operations per cell."""
+    from progressivecodec_tpu_torch.coder import rans_cuda
+
+    table_bytes = 0
+    for rows in rows_of:
+        plan = rans_cuda.plan_decode(t.compact, rows, lanes // groups, rans_cuda._smem_optin(0))
+        table_bytes += 2 * plan.span_len + 2 * plan.nrows * plan.bucket_stride + 8 * plan.nrows
+    dec_bytes = cells * (4 + 1 + 4) + table_bytes + consumed * 2 + len(rows_of) * (8 * lanes + 8 * groups)
+    b, o = dec_bytes / MEM_BYTES_PER_S, cells * 12 / INT32_OPS_PER_S
+    return 1e3 * max(b, o), "bytes" if b >= o else "operations"
 
 
 def check_kernels(codec, dev):
@@ -491,76 +529,81 @@ def check_kernels(codec, dev):
     log("  small stream (3 stages, 64 lanes): card kernels == CPU plain twins, byte for byte")
 
     cells = 1956 * LANES
-    consumed = int(n_words) - 2 * LANES
     enc_bytes = cells * (4 + 1 + 2 + 1) + 4 * LANES
     enc_ops = cells * 30  # renorm test, shifts, masks and the magic-multiplier divmod
-    # each stage reads its CDF rows' compact table once (starts and buckets)
-    table_bytes = 0
-    for rows in rows_of:
-        plan = rans_cuda.plan_decode(t.compact, rows, LANES, rans_cuda._smem_optin(0))
-        table_bytes += 2 * plan.span_len + 2 * plan.nrows * plan.bucket_stride + 8 * plan.nrows
-    dec_bytes = cells * (4 + 1 + 4) + table_bytes + consumed * 2 + 12 * 8 * LANES
-    dec_ops = cells * 12
     results["rans_encode_scan"] = dict(
         ms=enc_ms, plain_ms=enc_plain_ms, max_abs_err=enc_err,
         bound_ms=1e3 * max(enc_bytes / MEM_BYTES_PER_S, enc_ops / INT32_OPS_PER_S),
         bound_by="bytes" if enc_bytes / MEM_BYTES_PER_S >= enc_ops / INT32_OPS_PER_S else "operations",
     )
-    results["rans_decode_scan"] = dict(
-        ms=dec_ms, plain_ms=dec_plain_ms, max_abs_err=dec_err,
-        bound_ms=1e3 * max(dec_bytes / MEM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S),
-        bound_by="bytes" if dec_bytes / MEM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S else "operations",
-    )
+    bound_ms, bound_by = decode_bound(t, rows_of, cells, int(n_words) - 2 * LANES, LANES)
+    results["rans_decode_scan"] = dict(ms=dec_ms, plain_ms=dec_plain_ms, max_abs_err=dec_err,
+                                       bound_ms=bound_ms, bound_by=bound_by)
     for name, r in results.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms ({1e6 * r['ms'] / 1956:.1f} ns per row), "
             f"plain twin {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
     return results
 
 
-def decode_case(label, codec, stages, rows_of, lanes, dev, smem_cap=None, want_ok=True):
-    """Code `stages` on the card (encode kernel vs twin), then decode every
-    stage with the decode kernel and its twin; all bit for bit.  Returns
-    (rows decoded, kernel ms for all stages)."""
+def decode_case(label, codec, stages, rows_of, lanes, dev, smem_cap=None, timed=False):
+    """Code `stages` as one stream of K=`lanes` on the card (the encode
+    kernel over whole warps against its twin), then decode every stage with
+    the decode kernel and its twin, bit for bit, with the decoded values
+    exact and stream_ok.  Returns the rows, the kernel ms of all stages as a
+    chain (CUDA events, host included), the twin's when `timed`, the largest
+    |kernel - twin| and the stages' bound."""
     from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
 
     t = codec.device_tables
     dstages = [tuple(a.to(dev) for a in s) for s in stages]
     sf_rev, kp_rev, esc_flags, sym = rans_device.encode_prepare(dstages, t, lanes)
-    enc = rans_cuda.rans_encode_scan(sf_rev, kp_rev)
+    enc = rans_device.encode_scan_rev(sf_rev, kp_rev, lanes)
     torch.cuda.synchronize()
     err = max_abs_err(enc, rans_cuda.rans_encode_scan_plain(sf_rev, kp_rev))
     require(err == 0, f"{label}: encode kernel != plain twin: max|d| {err}")
-    stream, n_words, _, _ = rans_device.encode_finalize(*enc, esc_flags, sym, lanes)
+    stream, n_words, esc, n_esc = rans_device.encode_finalize(*enc, esc_flags, sym, lanes)
     stream = stream[: int(n_words)]
+    esc = torch.nn.functional.pad(esc[: 2 * int(n_esc)], (0, 2))
     grids = [(rans_device._pad_to_grid(s_idx, lanes),
               rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes)) for _, s_idx, s_keep in dstages]
     dec0 = rans_device.decoder_init(stream, lanes)
     dec = dec0
-    for (ig, kg), rows in zip(grids, rows_of):
+    for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dstages, grids, rows_of):
         got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf,
                                          t.compact, rows, smem_cap=smem_cap)
         torch.cuda.synchronize()
         want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
         err = max_abs_err(got, want)
         require(err == 0, f"{label}: decode kernel != plain twin: max|d| {err}")
-        dec = rans_device.DecoderState(got[0], got[1], dec.esc_offset)
-    if want_ok:
-        require(bool(rans_device.stream_ok(dec)) and int(dec.offset) == int(n_words),
-                f"{label}: stream_ok is False")
+        esc_off, vals = rans_device.decode_stage_values(dec.esc_offset, got[2], esc, s_idx, s_keep, t, lanes)
+        require(torch.equal(vals, torch.where(s_keep, s_sym, 0)), f"{label}: decoded values != symbols")
+        dec = rans_device.DecoderState(got[0], got[1], esc_off)
+    require(bool(rans_device.stream_ok(dec)) and int(dec.offset) == int(n_words),
+            f"{label}: stream_ok is False")
 
-    def run():
+    def run(plain):
         d = dec0
         for (ig, kg), rows in zip(grids, rows_of):
-            s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
-                                                 t.compact, rows, smem_cap=smem_cap)
+            if plain:
+                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offset, stream, ig, kg, t.dec_sf)
+            else:
+                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
+                                                     t.compact, rows, smem_cap=smem_cap)
             d = rans_device.DecoderState(s, o, d.esc_offset)
 
     n_rows = sum(ig.shape[0] for ig, _ in grids)
-    ms = cuda_time_ms(run, reps=3, warmup=1)
+    ms = cuda_time_ms(lambda: run(False), reps=10 if timed else 3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: run(True), reps=1, warmup=0) if timed else None
+    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], lanes, smem_cap or rans_cuda._smem_optin(0))
+    bound_ms, bound_by = decode_bound(t, rows_of, n_rows * lanes, int(n_words) - 2 * lanes, lanes)
+    route = "a grid" if plan.grid else "a cluster" if plan.ctas > 1 else "one CTA"
     per_row = f"{1e6 * ms / n_rows:.1f} ns per row" if n_rows else "no rows"
-    log(f"  decode case {label}: P={n_rows} K={lanes}, {int(n_words)} words: encode and decode "
-        f"kernels == plain twins, stream_ok; decode {ms:.4f} ms ({per_row})")
-    return n_rows, ms
+    log(f"  decode case {label}: P={n_rows} K={lanes}, {int(n_words)} words, {int(n_esc)} escapes: encode and "
+        f"decode kernels == plain twins, values exact, stream_ok; {plan.ctas} CTA(s) of {plan.cta_lanes} "
+        f"threads as {route}, ring {plan.ring_words} words, table in shared memory {plan.table_in_smem} "
+        f"(shift {plan.shift}), {plan.smem_bytes} B shared memory per CTA; decode {ms:.4f} ms ({per_row})"
+        + (f", twin {plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by})" if timed else ""))
+    return dict(rows=n_rows, ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_decode_cases(codec, dev):
@@ -598,8 +641,7 @@ def check_decode_cases(codec, dev):
     decode_case("flagship-table stages, symbols drawn from each row's distribution", codec, pmf,
                 stage_rows(codec, len(pmf)), LANES, dev)
     b8 = flagship_stages(tables, row0, np.random.default_rng(SEED + 4), batch=8)
-    rows8, ms8 = decode_case("batch-8 flagship grid", codec, b8, stage_rows(codec, len(b8)),
-                             LANES, dev)
+    rows8 = decode_case("batch-8 flagship grid", codec, b8, stage_rows(codec, len(b8)), LANES, dev)["rows"]
     require(rows8 == 15_648, f"batch-8 grid has {rows8} rows, want 15,648")
     flag3 = flagship_stages(tables, row0, np.random.default_rng(SEED + 5))[:3]
     cap = max(rans_cuda.decode_smem_bytes(LANES, 1, 0, 0, plan.ring_words, False)
@@ -655,12 +697,13 @@ def grouped_case(label, codec, stages, rows_of, lanes, groups, dev, timed=True):
     n_rows = sum(ig.shape[0] for ig, _ in grids)
     ms = cuda_time_ms(lambda: run(False), reps=10 if timed else 3, warmup=1)
     plain_ms = cuda_time_ms(lambda: run(True), reps=1, warmup=0) if timed else None
-    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], rans_cuda.warp_lanes(lanes // groups),
-                                 rans_cuda._smem_optin(0))
+    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], lanes // groups, rans_cuda._smem_optin(0))
+    ctas = (f"{groups} clusters of {plan.ctas} CTAs of {plan.cta_lanes} threads" if plan.ctas > 1
+            else f"clusters of {rans_cuda.decode_cluster(groups)}")
     log(f"  decode case grouped {label}: P={n_rows} K={lanes} G={groups} (kt={lanes // groups}), "
         f"{int(n_words.sum())} words, {int(n_escs.sum())} escapes: grouped kernel == plain twin, values "
         f"exact, stream_ok; decode {ms:.4f} ms ({1e6 * ms / n_rows:.1f} ns per row), "
-        f"{plan.smem_bytes} B shared memory per CTA, clusters of {rans_cuda.decode_cluster(groups)}")
+        f"{plan.smem_bytes} B shared memory per CTA, {ctas}")
     return n_rows, int(n_words.sum()) - 2 * lanes, ms, plain_ms
 
 
@@ -668,8 +711,6 @@ def check_grouped_cases(codec, dev):
     """Phase 3, third part: the PCT1-G decode kernel against its twin.
     Returns the kernel-table entry, measured on the flagship-table stages at
     K=512, G=4 (kt=128), the grouped flagship round trip's shape."""
-    from progressivecodec_tpu_torch.coder import rans_cuda
-
     tables = codec._tables
     row0 = codec.gauss_row0
     flag = flagship_stages(tables, row0, np.random.default_rng(SEED + 7))
@@ -684,19 +725,8 @@ def check_grouped_cases(codec, dev):
     for lanes, groups in ((32, 4), (1024, 2), (64, 64), (96, 3)):
         grouped_case("z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3),
                      lanes, groups, dev, timed=False)
-    # the bytes, as for the single stream: idx, keep and cums per cell, each
-    # stage's compact table once, the payload words consumed, the states
-    # and the four offsets in and out of each stage
-    cells = n_rows * LANES
-    table_bytes = 0
-    for rows in rows_of:
-        plan = rans_cuda.plan_decode(codec.device_tables.compact, rows, 128, rans_cuda._smem_optin(0))
-        table_bytes += 2 * plan.span_len + 2 * plan.nrows * plan.bucket_stride + 8 * plan.nrows
-    dec_bytes = cells * (4 + 1 + 4) + table_bytes + consumed * 2 + 12 * (8 * LANES + 8 * 4)
-    dec_ops = cells * 12
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0,
-                bound_ms=1e3 * max(dec_bytes / MEM_BYTES_PER_S, dec_ops / INT32_OPS_PER_S),
-                bound_by="bytes" if dec_bytes / MEM_BYTES_PER_S >= dec_ops / INT32_OPS_PER_S else "operations")
+    bound_ms, bound_by = decode_bound(codec.device_tables, rows_of, n_rows * LANES, consumed, LANES, groups=4)
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ---------------------------------------------------------------------------
@@ -726,6 +756,8 @@ def zero_launches():
     for scan in (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan,
                  rans_cuda.rans_decode_scan_grouped):
         scan.launches = 0
+    for route in rans_cuda.SPAN_LAUNCHES:
+        rans_cuda.SPAN_LAUNCHES[route] = 0
 
 
 def read_launches():
@@ -1856,6 +1888,94 @@ def check_parallel(dev, smi, plan=None):
     log(f"  phase 9 launches in the ranks (encode, decode, grouped decode): {launches}")
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# the 12 flagship-table stages re-gridded: one CTA (1024), clusters of 8
+# CTAs (2048, 4096, 8192), a cooperative grid of 16 CTAs (16384)
+SPAN_LANES = (1024, 2048, 4096, 8192, 16384)
+# K of the row / exchange split (a cluster of 8 CTAs up to K = 8192, then a
+# grid of CTAs of up to 1,024); each C divides its K
+SPAN_SPLITS = (1536, 2048, 4096, 8192, 16384)
+
+
+def check_lane_counts(dev, smi):
+    """Phase 10: the decode at every lane count the JAX coder takes.  The
+    spanning kernels against their twins on the 12 flagship-table stages at
+    K in SPAN_LANES and on three smaller stages at K in {48, 1056, 4100},
+    and grouped at kt = 2048 and 1025; the row / exchange split; flagship
+    round trips at K=2048 (batch 8, q=10), K=48 (batch 1, q=5) and K=16384
+    (batch 8, q=10), the launches counted; `tools.bench_coder` over K in
+    {512, 1024, 2048, 4096}.  Returns the `kernels` entries of the cluster
+    and grid instances."""
+    import contextlib
+    import io
+
+    from progressivecodec_tpu_torch.coder import rans_cuda
+    from progressivecodec_tpu_torch.config import ModelConfig
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.tools import bench_coder
+
+    model = seeded_model(ModelConfig(), dev)
+    codec = GranularCodec(model, lanes=LANES, device=dev)
+    codec.update()
+    tables, row0 = codec._tables, codec.gauss_row0
+    flag = flagship_stages(tables, row0, np.random.default_rng(SEED + 9))
+    rows_of = stage_rows(codec, len(flag))
+    cases = {k: decode_case(f"K={k}, 12 flagship-table stages", codec, flag, rows_of, k, dev, timed=True)
+             for k in SPAN_LANES}
+    small = flagship_stages(tables, row0, np.random.default_rng(SEED + 3))
+    small = [small[0], small[1], tuple(a[:50_000] for a in small[-1])]
+    for k in (48, 1056, 4100):
+        decode_case(f"K={k}, z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3), k,
+                    dev)
+    grouped_case("flagship-table stages", codec, flag, rows_of, 4096, 2, dev, timed=False)
+    grouped_case("z, one base slice, part of the enhancement (kt=1025, staged)", codec, small,
+                 stage_rows(codec, 3), 4100, 4, dev, timed=False)
+
+    # the row and the exchange: a stream of C CTAs of w lanes against C
+    # groups of K / C lanes, one CTA each, on the same grid (the same rows)
+    for k in SPAN_SPLITS:
+        c = rans_cuda.decode_span(k)[0]
+        require(k % c == 0, f"split K={k}: {c} CTAs do not divide it into groups")
+        log_split(scan_split(tables, codec.device_tables, row0, dev, groups=(1, c), lanes=k), f" K={k}")
+    log_split(scan_split(tables, codec.device_tables, row0, dev, groups=(1,), lanes=1024), " K=1024")
+    # two groups of 2,048 lanes: two clusters of 8 CTAs
+    log_split(scan_split(tables, codec.device_tables, row0, dev, groups=(2,), lanes=4096), " K=4096")
+
+    x1 = torch.from_numpy(synthetic_image(1, SEED)).to(dev)
+    x8 = torch.from_numpy(synthetic_image(8, SEED + 1)).to(dev)
+    launches = {}
+    for k, x, q, route in ((2048, x8, 10, "cluster"), (48, x1, 5, None), (16384, x8, 10, "grid")):
+        got = roundtrip(GranularCodec(model, lanes=k, device=dev), x, q, f"K={k} q={q} b={x.shape[0]}")
+        span = dict(rans_cuda.SPAN_LAUNCHES)
+        want = {r: got["dec"] if r == route else 0 for r in span}
+        require(span == want, f"K={k}: spanning launches {span}, want {want}")
+        launches[k] = got["dec"]
+        log(f"  K={k}: spanning decode launches {span}")
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench_coder.main(["--lanes", "512,1024,2048,4096"])
+    for line in buf.getvalue().splitlines():
+        rec = json.loads(line)
+        require(rec["values_exact"] and rec["stream_ok"] and rec["nvidia_smi"] == smi,
+                f"bench_coder K={rec['lanes']}: {line}")
+        log(f"  bench_coder: {line}")
+
+    src = "progressivecodec_tpu_torch/csrc/rans_decode.cu"
+    return [
+        dict(name="rans_decode_scan_cluster", route="cuda", source=src,
+             replaces="progressivecodec_tpu/coder/rans_device.py:358", launches=launches[2048],
+             library_ms=None, lanes=2048,
+             **{key: cases[2048][key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}),
+        dict(name="rans_decode_scan_grid", route="cuda", source=src,
+             replaces="progressivecodec_tpu/coder/rans_device.py:358", launches=launches[16384],
+             library_ms=None, lanes=16384,
+             **{key: cases[16384][key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}),
+    ]
+
 
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
@@ -1876,25 +1996,33 @@ spec.loader.exec_module(m)
 from progressivecodec_tpu_torch import build
 build.build()
 dev = torch.device("cuda")
-print("SPLIT " + json.dumps(m.scan_split(*m.flagship_tables(dev), dev)))
+tables = m.flagship_tables(dev)
+for k in json.loads(sys.argv[2]) or [None]:
+    split = m.scan_split(*tables, dev) if k is None else m.scan_split(*tables, dev, groups=(1,), lanes=k)
+    print(f"SPLIT {k} " + json.dumps(split))
 """
 
 
-def ab_split(others) -> None:
+def ab_split(others, lanes=()) -> None:
     """`scan_split` of other checkouts of the repo (e.g. the parent commit
     unpacked by `git archive` into build/) against this one, one process
     each, in the order others, this, this, others reversed, on one card;
-    each builds its own kernels."""
+    each builds its own kernels.  With `lanes`, the single stream at each
+    of those K instead of the flagship's G in {1, 2, 4, 16}."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     order = [("other", o) for o in others] + [("this", here)] * 2 + [("other", o) for o in others[::-1]]
     for label, tree in order:
-        out = subprocess.run([sys.executable, "-c", _AB_JOB, os.path.join(here, "chip_smoke.py")],
+        out = subprocess.run([sys.executable, "-c", _AB_JOB, os.path.join(here, "chip_smoke.py"),
+                              json.dumps(list(lanes))],
                              cwd=tree, capture_output=True, text=True, timeout=900)
         require(out.returncode == 0, f"split of {tree} failed:\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
-        split = json.loads(out.stdout.split("SPLIT ")[-1].splitlines()[0])
-        log_split({int(g): r for g, r in split.items()}, f" [{label}: {tree}]")
+        for line in out.stdout.splitlines():
+            if line.startswith("SPLIT "):
+                _, k, body = line.split(" ", 2)
+                log_split({int(g): r for g, r in json.loads(body).items()},
+                          f" [{label}: {tree}]" + ("" if k == "None" else f" K={k}"))
 
 
 def main() -> int:
@@ -1904,7 +2032,10 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--ab"]:
         log(f"nvidia-smi: {nvidia_smi_line()}")
-        ab_split(sys.argv[2:])
+        others, lanes = sys.argv[2:], ()
+        if others[:1] == ["--lanes"]:
+            lanes, others = tuple(int(k) for k in others[1].split(",")), others[2:]
+        ab_split(others, lanes)
         return 0
 
     from progressivecodec_tpu_torch import build
@@ -2003,6 +2134,11 @@ def main() -> int:
     require(all(n > 0 for n in sharded), f"a kernel was not launched in phase 9's ranks: {sharded}")
     log(f"  phase 9 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 10: every lane count: streams and groups spanning CTAs, round trips, bench_coder")
+    t0 = time.perf_counter()
+    spanning = check_lane_counts(dev, smi)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
@@ -2021,7 +2157,7 @@ def main() -> int:
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
              launches=grouped_counts["grouped"], library_ms=None, sharded_launches=sharded[2],
              **results["rans_decode_scan_grouped"]),
-    ]
+    ] + spanning
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -8,6 +8,12 @@
                             the PCT1-G scan (csrc/rans_decode.cu, one CTA
                             per group, in clusters of `decode_cluster(G)`)
 
+A stream or group of more than 1,024 lanes spans C CTAs (`decode_span`):
+a thread-block cluster for C <= 8, a cooperative grid above, both counted
+in `SPAN_LAUNCHES` besides the wrapper's own count.  A single stream whose
+K is not a whole number of warps up to 1,024 runs as one group of the
+grouped instance.
+
 Each wrapper takes its route from the device of its tensors: a CPU tensor
 goes to the plain twin, a CUDA tensor launches the kernel.  On CUDA there
 is no fallback: a failed build or launch raises.  Each wrapper counts its
@@ -208,6 +214,9 @@ DECODE_REFILL = 4  # rows from a ring refill to the next (kRefill)
 DECODE_SLOTS = 2 * DECODE_REFILL + 1  # rows of idx / keep in the ring (kSlots)
 STREAM_CHUNK = 256  # stream words per warp copy (kChunk)
 MAX_CLUSTER = 8  # CTAs per cluster, the portable size (kMaxCluster)
+MAX_CTA_LANES = 1024  # threads of one decode CTA
+MAX_SPAN = 64  # CTAs of one stream on the grid path: 65,535 lanes in CTAs of 1,024 (kMaxSpan)
+SPAN_XCHG_BYTES = 2 * MAX_SPAN * 4 + 16  # the row totals' slots, two rows, and two row barriers
 SHIFTS = range(6, 17)  # bucket widths 2^6 .. 2^16 cums
 RUN_FLAG = 1 << 15  # bucket of freq-1 symbols only (kRunFlag)
 
@@ -285,7 +294,8 @@ class CompactCdf:
 
 
 class DecodePlan(NamedTuple):
-    """How one decode launch lays out its dynamic shared memory."""
+    """How one decode launch lays out its dynamic shared memory, and how
+    many CTAs each stream (or group) spans."""
 
     row0: int
     nrows: int
@@ -293,19 +303,24 @@ class DecodePlan(NamedTuple):
     span_len: int
     shift: int  # cum >> shift picks the bucket
     bucket_stride: int
-    ring_words: int  # stream ring
+    ring_words: int  # stream ring; 0 (a spanning stream): the words are read from global memory
     table_in_smem: bool  # False: the search reads the table in global memory
     smem_bytes: int
+    ctas: int  # CTAs per stream or group
+    cta_lanes: int  # threads per CTA
+    grid: bool  # the CTAs exchange row totals through global memory (C > 8)
 
 
-def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_in_smem) -> int:
-    """Dynamic shared memory of one decode launch; the layout of
-    csrc/rans_decode.cu (`layout`)."""
+def decode_smem_bytes(lanes, nrows, span_len, bucket_stride, ring_words, table_in_smem,
+                      ctas: int = 1) -> int:
+    """Dynamic shared memory of one decode CTA of `lanes` threads whose
+    stream spans `ctas` CTAs; the layout of csrc/rans_decode.cu (`layout`)."""
     r16 = lambda b: (b + 15) // 16 * 16  # noqa: E731
     total = 64  # warp counts
     if table_in_smem:
         total += r16(nrows * 2) + r16(span_len * 2) + r16(nrows * bucket_stride * 2)
-    return total + DECODE_SLOTS * lanes * 5 + ring_words * 2 + 16  # the rings, the table's mbarrier
+    total += DECODE_SLOTS * lanes * 5 + ring_words * 2 + 16  # the rings, the table's mbarrier
+    return total + (SPAN_XCHG_BYTES if ctas > 1 else 0)
 
 
 def decode_cluster(groups: int) -> int:
@@ -320,11 +335,32 @@ def warp_lanes(kt: int) -> int:
     return -(-kt // 32) * 32
 
 
+def decode_span(kt: int) -> tuple[int, int, bool]:
+    """(C, w, grid): a stream or group of kt lanes runs on C CTAs of w
+    threads.  Up to 1,024 lanes, one CTA.  Above, a full cluster: w = kt /
+    MAX_CLUSTER in whole warps (on an H100 the exchange cost about the same
+    at 2 to 8 CTAs, and a narrower CTA's row is shorter: PERF.md); CTAs of
+    1,024 lanes where that would take more than MAX_CLUSTER.  grid is True
+    where it still does (kt > 8,192), and the CTAs then run as a
+    cooperative grid rather than a cluster."""
+    if not 1 <= kt <= MAX_SPAN * MAX_CTA_LANES:
+        raise ValueError(f"lanes per stream must lie in [1, {MAX_SPAN * MAX_CTA_LANES}], got {kt}")
+    if kt <= MAX_CTA_LANES:
+        return 1, warp_lanes(kt), False
+    c = MAX_CLUSTER if kt <= MAX_CLUSTER * MAX_CTA_LANES else -(-kt // MAX_CTA_LANES)
+    w = warp_lanes(-(-kt // c))
+    c = -(-kt // w)  # so the last CTA holds at least one lane
+    return c, w, c > MAX_CLUSTER
+
+
 def plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> DecodePlan:
-    """The finest bucket shift at which the stage's rows, the idx / keep
-    ring and the stream ring of one CTA of `lanes` threads fit `smem_cap`
-    bytes; else the global-table path.  Kept in `compact.plans`.  Raises
-    ValueError if not even the rings fit."""
+    """The launch plan of a stream (or group) of `lanes` lanes: its CTAs
+    (`decode_span`), then the finest bucket shift at which the stage's rows,
+    the idx / keep ring and the stream ring of each CTA fit `smem_cap`
+    bytes, else the global-table path.  A stream of several CTAs has no
+    stream ring (ring_words 0): its lanes read their words from the stream
+    in global memory.  Kept in `compact.plans`.  Raises ValueError if not
+    even the rings fit."""
     key = (tuple(rows), lanes, smem_cap)
     if key not in compact.plans:
         compact.plans[key] = _plan_decode(compact, rows, lanes, smem_cap)
@@ -335,26 +371,34 @@ def _plan_decode(compact: CompactCdf, rows, lanes: int, smem_cap: int) -> Decode
     row0, row1 = rows
     if not 0 <= row0 < row1 <= compact.meta.shape[0]:
         raise ValueError(f"rows {rows} outside the table's {compact.meta.shape[0]} rows")
+    ctas, w, grid = decode_span(lanes)
     nrows = row1 - row0
     span_base = int(compact.row_base[row0])
     span_len = int(compact.row_base[row1]) - span_base
-    ring = 1 << (2 * DECODE_REFILL * lanes + STREAM_CHUNK - 1).bit_length()
+    ring = 0 if ctas > 1 else 1 << (2 * DECODE_REFILL * w + STREAM_CHUNK - 1).bit_length()
+    span = dict(ctas=ctas, cta_lanes=w, grid=grid)
     for shift in SHIFTS if span_len <= 1 << 16 else ():  # u16 row bases in shared memory
         stride = bucket_stride(shift)
-        b = decode_smem_bytes(lanes, nrows, span_len, stride, ring, True)
+        b = decode_smem_bytes(w, nrows, span_len, stride, ring, True, ctas)
         if b <= smem_cap:
-            return DecodePlan(row0, nrows, span_base, span_len, shift, stride, ring, True, b)
-    b = decode_smem_bytes(lanes, nrows, span_len, 0, ring, False)
+            return DecodePlan(row0, nrows, span_base, span_len, shift, stride, ring, True, b, **span)
+    b = decode_smem_bytes(w, nrows, span_len, 0, ring, False, ctas)
     if b > smem_cap:
         raise ValueError(f"decode rings need {b} bytes of shared memory, the cap is {smem_cap}")
-    return DecodePlan(row0, nrows, span_base, span_len, 16, 0, ring, False, b)
+    return DecodePlan(row0, nrows, span_base, span_len, 16, 0, ring, False, b, **span)
+
+
+def _smem_cap(dev, smem_cap):
+    return smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.Tensor,
                      idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor,
                      compact: CompactCdf | None = None, rows=None, *, smem_cap: int | None = None):
     """Same contract as `rans_decode_scan_plain`; launches the CUDA kernel
-    (one CTA of K threads; needs K % 32 == 0 and K <= 1024) for CUDA tensors.
+    for CUDA tensors: one CTA of K threads when K is a multiple of 32 up to
+    1,024; else the grouped instance with one group (K < 32 or K % 32 != 0)
+    or C CTAs (K > 1,024, `decode_span`).
 
     The kernel looks symbols up in `compact` (required on CUDA), restricted
     to the CDF rows [row0, row1) = `rows` (default: all), which every kept
@@ -375,11 +419,13 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
         return rans_decode_scan_plain(states, offset, stream, idx, kp, dec_sf)
     if dev.type != "cuda":
         raise ValueError(f"rans_decode_scan: unsupported device {dev}")
-    if k % 32 or not 32 <= k <= 1024:
-        raise ValueError(f"rans_decode_scan kernel needs 32 <= lanes <= 1024, lanes % 32 == 0; got {k}")
     if compact is None or compact.device != dev:
         raise ValueError(f"rans_decode_scan kernel needs the CompactCdf tables on {dev}")
-    cap = smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
+    if k % 32 or k > MAX_CTA_LANES:
+        out = _launch_groups(states, offset, stream[None], idx, kp, compact, rows, _smem_cap(dev, smem_cap))
+        rans_decode_scan.launches += 1
+        return out
+    cap = _smem_cap(dev, smem_cap)
     rows = rows or (0, compact.meta.shape[0])
     plan = plan_decode(compact, rows, k, cap)
     stream, idx, kp = _aligned(stream), _aligned(idx), _aligned(kp)
@@ -411,11 +457,12 @@ def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, stream
                              compact: CompactCdf | None = None, rows=None, *,
                              smem_cap: int | None = None):
     """Same contract as `rans_decode_scan_grouped_plain`; for CUDA tensors
-    one launch of G CTAs, one per group, of kt lanes rounded up to whole
-    warps (any 1 <= kt <= 1024), in clusters of `decode_cluster(G)` CTAs
-    that share the on-chip table's copies (no cluster on the global-table
-    path).  `compact`, `rows` and `smem_cap` as for `rans_decode_scan`; the
-    plan is made at the CTA's width."""
+    one launch: G CTAs, one per group, of kt lanes rounded up to whole
+    warps (kt <= 1,024), in clusters of `decode_cluster(G)` CTAs that share
+    the on-chip table's copies (no cluster on the global-table path); or,
+    for kt > 1,024, G times C CTAs (`decode_span`), each group a cluster of
+    C CTAs or, above 8, a share of a cooperative grid.  `compact`, `rows` and `smem_cap` as for
+    `rans_decode_scan`."""
     dev = states.device
     _check("states", states, torch.int32, 1, dev)
     _check("offsets", offsets, torch.int32, 1, dev)
@@ -432,45 +479,71 @@ def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, stream
         return rans_decode_scan_grouped_plain(states, offsets, streams, idx, kp, dec_sf)
     if dev.type != "cuda":
         raise ValueError(f"rans_decode_scan_grouped: unsupported device {dev}")
-    kt = k // g
-    lanes = warp_lanes(kt)
-    if lanes > 1024:
-        raise ValueError(f"rans_decode_scan_grouped kernel needs lanes per group <= 1024; got {kt}")
     if compact is None or compact.device != dev:
         raise ValueError(f"rans_decode_scan_grouped kernel needs the CompactCdf tables on {dev}")
-    cap = smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
+    out = _launch_groups(states, offsets, streams, idx, kp, compact, rows, _smem_cap(dev, smem_cap))
+    rans_decode_scan_grouped.launches += 1
+    return out
+
+
+rans_decode_scan_grouped.launches = 0
+
+# multi-CTA launches by route ("cluster", "grid"), counted besides the
+# calling wrapper's own count
+SPAN_LAUNCHES = {"cluster": 0, "grid": 0}
+
+
+def _launch_groups(states, offsets, streams, idx, kp, compact, rows, cap):
+    """One launch of the decode kernel over G = streams.shape[0] streams of
+    kt = K/G lanes: the grouped entry (one CTA per group) for kt <= 1,024,
+    the span entry (C CTAs per group) above.  Returns (states, offsets,
+    cums)."""
+    dev = states.device
+    p, k = idx.shape
+    g = streams.shape[0]
+    kt = k // g
     rows = rows or (0, compact.meta.shape[0])
-    plan = plan_decode(compact, rows, lanes, cap)
-    if streams.shape[1] % 8:  # rows 16 bytes apart; the zeros read as past the end
+    plan = plan_decode(compact, rows, kt, cap)
+    lanes, ctas = plan.cta_lanes, plan.ctas
+    width = ctas * lanes  # a group's columns, padded to whole CTAs when staged
+    if g > 1 and streams.shape[1] % 8:  # rows 16 bytes apart; the zeros read as past the end
         streams = torch.nn.functional.pad(streams, (0, -streams.shape[1] % 8))
     if kt % 16:
         # the kernel copies 16 bytes at a time: stage each group's columns
-        # into a block of whole warps, padding lanes keeping nothing
-        idx = torch.nn.functional.pad(idx.reshape(p, g, kt), (0, lanes - kt)).transpose(0, 1).contiguous()
-        kp = torch.nn.functional.pad(kp.reshape(p, g, kt), (0, lanes - kt)).transpose(0, 1).contiguous()
-        in_group, in_row = p * lanes, lanes
+        # into a block of whole CTAs, padding lanes keeping nothing
+        idx = torch.nn.functional.pad(idx.reshape(p, g, kt), (0, width - kt)).transpose(0, 1).contiguous()
+        kp = torch.nn.functional.pad(kp.reshape(p, g, kt), (0, width - kt)).transpose(0, 1).contiguous()
+        in_group, in_row = p * width, width
     else:
         in_group, in_row = kt, k
     streams, idx, kp = _aligned(streams), _aligned(idx), _aligned(kp)
     buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
-    cluster = decode_cluster(g) if plan.table_in_smem else 1
     states_out = torch.empty((k,), dtype=torch.int32, device=dev)
     offsets_out = torch.empty((g,), dtype=torch.int32, device=dev)
     cums = torch.empty((p, k), dtype=torch.int32, device=dev)
     ci, cl = ctypes.c_int, ctypes.c_longlong
-    fn = _fn("rans_decode", "rans_decode_scan_grouped", _VP, _VP, _VP, cl, _VP, _VP, cl, ci,
-             _VP, _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, ci, ci, ci, _VP)
-    rc = fn(states.data_ptr(), offsets.data_ptr(), streams.data_ptr(), streams.shape[1],
-            idx.data_ptr(), kp.data_ptr(), in_group, in_row, compact.starts.data_ptr(), buckets,
-            compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
-            plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
-            states_out.data_ptr(), offsets_out.data_ptr(), cums.data_ptr(), p, g, kt, lanes, cluster,
-            _stream(dev))
+    common = (states.data_ptr(), offsets.data_ptr(), streams.data_ptr(), streams.shape[1],
+              idx.data_ptr(), kp.data_ptr(), in_group, in_row, compact.starts.data_ptr(), buckets,
+              compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
+              plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
+              states_out.data_ptr(), offsets_out.data_ptr(), cums.data_ptr(), p, g, kt, lanes)
+    argtypes = (_VP, _VP, _VP, cl, _VP, _VP, cl, ci, _VP, _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                _VP, _VP, _VP, ci, ci, ci, ci)
+    if ctas == 1:
+        cluster = decode_cluster(g) if plan.table_in_smem else 1
+        fn = _fn("rans_decode", "rans_decode_scan_grouped", *argtypes, ci, _VP)
+        rc = fn(*common, cluster, _stream(dev))
+        what = f"clusters of {cluster}"
+    else:
+        route = "grid" if plan.grid else "cluster"
+        # the grid's row totals, tagged with their row; -1 matches no row
+        xchg = torch.full((g * 2 * ctas,), -1, dtype=torch.int32, device=dev) if plan.grid else None
+        fn = _fn("rans_decode", "rans_decode_scan_span", *argtypes, ci, ci, _VP, _VP)
+        rc = fn(*common, ctas, int(plan.grid), xchg.data_ptr() if plan.grid else 0, _stream(dev))
+        what = (f"a cooperative grid of {g * ctas} CTAs" if plan.grid else
+                f"{g} clusters of {ctas} CTAs") + f" of {lanes} threads"
     if rc != 0:
-        raise RuntimeError(f"rans_decode_scan_grouped kernel launch failed (clusters of {cluster}): "
-                           f"cudaError {rc}")
-    rans_decode_scan_grouped.launches += 1
+        raise RuntimeError(f"rans_decode kernel launch failed ({what}): cudaError {rc}")
+    if ctas > 1:
+        SPAN_LAUNCHES[route] += 1
     return states_out, offsets_out, cums
-
-
-rans_decode_scan_grouped.launches = 0

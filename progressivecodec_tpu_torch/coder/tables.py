@@ -51,10 +51,8 @@ PRECISION = 16
 RANS_L = 1 << 16
 WORD_BITS = 16
 DEFAULT_LANES = 512
-# The decode kernel runs one CTA of K threads in whole warps.
-MIN_LANES, MAX_LANES = 32, 1024
 # A container holds the lane count in 16 bits and the group count in 8.
-MAX_GROUPS, MAX_GROUPED_LANES = 255, 0xFFFF
+MAX_GROUPS, MAX_LANES = 255, 0xFFFF
 
 
 def check_groups(groups) -> int:
@@ -65,20 +63,15 @@ def check_groups(groups) -> int:
 
 
 def check_lanes(lanes, groups: int = 1) -> int:
-    """Raise ValueError unless `lanes` suits `groups` streams.  One stream:
-    a multiple of 32 in [32, 1024] (one decode CTA of whole warps).  G > 1
-    (PCT1-G): a multiple of G with at most 1024 lanes per group (each group
-    one CTA, rounded up to whole warps) and at most 65535 in all."""
-    if groups == 1:
-        if int(lanes) != lanes or not MIN_LANES <= lanes <= MAX_LANES or lanes % 32:
-            raise ValueError(
-                f"lanes must be a multiple of 32 in [{MIN_LANES}, {MAX_LANES}], got {lanes!r}"
-            )
-    elif (int(lanes) != lanes or not groups <= lanes <= MAX_GROUPED_LANES or lanes % groups
-          or lanes // groups > MAX_LANES):
+    """Raise ValueError unless `lanes` suits `groups` streams: an integer in
+    [1, 65535] (the container's u16), and with G > 1 (PCT1-G) a multiple of
+    G.  These are the lane counts the JAX codec takes; the decode kernel
+    spreads a stream or group wider than one CTA over several
+    (`rans_cuda.decode_span`)."""
+    if int(lanes) != lanes or not 1 <= lanes <= MAX_LANES or lanes % groups:
         raise ValueError(
-            f"lanes must be a multiple of groups={groups} in [{groups}, {MAX_GROUPED_LANES}] "
-            f"with at most {MAX_LANES} per group, got {lanes!r}"
+            f"lanes must be an integer in [1, {MAX_LANES}] and a multiple of groups={groups}, "
+            f"got {lanes!r}"
         )
     return int(lanes)
 

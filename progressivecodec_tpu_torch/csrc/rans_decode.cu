@@ -100,6 +100,30 @@
 //     At kt = 32 it took 439 ns against 531 ns before the redesign; in an
 //     earlier build of this kernel, 458 ns against 498 ns with the exchange
 //     row (PERF.md).
+//   * A stream or group of kt > 1024 lanes, more than one CTA holds, spans
+//     C CTAs of w threads (kSpan; rans_cuda.decode_span: C = 8 and w = kt / 8
+//     up to 8192 lanes, then the fewest CTAs of at most 1024, C <= 64),
+//     CTA c taking lanes [c * w, (c + 1) * w).  Every CTA of the group
+//     reads the group's whole stream and keeps its offset, and a lane's
+//     word lies at the offset plus the flagged lanes of the lower CTAs plus
+//     its rank in its own CTA, so after each row's count the C CTAs
+//     exchange their totals (span_exchange).  Up to 8 CTAs the group is a
+//     thread-block cluster: the totals travel by st.async into the peers'
+//     shared memory, completing on a barrier per row parity, and the table
+//     comes by the cluster's multicast copies as in the grouped launch.
+//     Above 8 (kt > 8192) the group's CTAs are a share of a cooperative
+//     grid, every CTA resident, the totals through global memory.  A
+//     flagged lane reads its word straight from the stream in global
+//     memory, where it sits in L2 (ring_words 0): a ring of the group's
+//     whole window in each CTA (2 * kRefill * C * w words, refilled by all
+//     its warps) made the row 5 ns faster at K = 2048 and 129 ns slower at
+//     K = 4096, where it took the shared memory of a finer bucket table,
+//     and its prologue made the stages slower at both (PERF.md).  On an
+//     H100 the exchange cost ~370 ns a row at 2 to 8 CTAs of up to 512 lanes
+//     with that ring, as much at 2 and 4 CTAs as at 8 (PERF.md, the spanning
+//     rows' split table), so a full cluster of the narrowest CTAs is the
+//     default; without the ring, 349-412 ns at 8 CTAs of 192 to 1024 lanes
+//     and ~1,270 ns on the grid of 16 (PERF.md, after the ring's A/B).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -115,6 +139,8 @@ constexpr int kSlots = kDepth + kRefill - 1;  // rows of idx / keep in the ring
 constexpr int kChunk = 256;               // stream words per warp copy: 32 threads x 16 B
 constexpr uint32_t kRunFlag = 0x8000u;    // bucket of freq-1 symbols only
 constexpr uint32_t kBulkBytes = 8192;     // table bytes per bulk copy
+constexpr int kMaxCluster = 8;            // the portable cluster size
+constexpr int kMaxSpan = 64;              // CTAs of one stream: 65,535 lanes in CTAs of 1,024
 
 struct DecodeArgs {
   const uint32_t* states_in;  // (K,)
@@ -136,16 +162,19 @@ struct DecodeArgs {
   int32_t* offset_out;   // (G,)
   int32_t* cums;         // (P, K): group g's columns from g * kt
   int rows, kt;          // rows and lanes of one group
-  int lanes;             // threads per CTA: kt rounded up to whole warps
+  int lanes;             // threads per CTA: kt rounded up to whole warps, or
+                         // the group's share of C CTAs (kSpan)
+  int ctas;              // CTAs per group (kSpan; 1 otherwise)
+  uint32_t* xchg;        // the grid path's row totals: (G, 2, ctas), -1 at launch
 };
 
 struct Layout {
-  int bases, starts, buckets, idx, kp, ring, bar, total;
+  int bases, starts, buckets, idx, kp, ring, bar, xchg, total;
 };
 
 __host__ __device__ inline int round16(int b) { return (b + 15) & ~15; }
 
-__host__ __device__ inline Layout layout(const DecodeArgs& a, bool table_in_smem) {
+__host__ __device__ inline Layout layout(const DecodeArgs& a, bool table_in_smem, bool span) {
   Layout l;
   int off = 64;  // warp counts, two rows of 32 bytes
   l.bases = off;
@@ -168,6 +197,10 @@ __host__ __device__ inline Layout layout(const DecodeArgs& a, bool table_in_smem
   // 1.2 us and the grouped row up to 40 ns slower so (PERF.md)
   l.bar = off;
   off += 16;
+  // a spanning stream's row totals, two rows of kMaxSpan words, and the
+  // cluster's two row barriers
+  l.xchg = off;
+  if (span) off += 2 * kMaxSpan * 4 + 16;
   l.total = off;
   return l;
 }
@@ -220,6 +253,77 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+// The spanning stream's exchange.  On the cluster path a CTA sends its row
+// total into each peer's slot by an asynchronous store over distributed
+// shared memory that completes on the peer's row barrier; on the grid path
+// the totals go through global memory.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void st_async_peer(const uint32_t* slot, const uint64_t* bar, uint32_t peer,
+                                              uint32_t v) {
+  uint32_t rs, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rs) : "r"(smem_u32(slot)), "r"(peer));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(smem_u32(bar)), "r"(peer));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.u32 [%0], %1, [%2];\n" ::"r"(rs),
+               "r"(v), "r"(rb)
+               : "memory");
+}
+__device__ __forceinline__ void st_release_gpu(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ uint32_t ld_acquire_gpu(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// One row's exchange between the C CTAs of a spanning stream (kSpan): the
+// CTA's `total` (its flagged lanes) goes to every CTA of its group, each
+// warp reads the C totals back, `before` gains those of the lower CTAs and
+// `total` becomes the group's.  The slots alternate between two rows; a CTA
+// writes row r + 2 into a slot only after it has the reader's total of row
+// r + 1, which the reader sends after reading row r.
+//   kSpan 1, a cluster: warp 0's lane p stores the total into CTA p's slot
+// with st.async, which completes on CTA p's barrier of the row's parity;
+// every warp waits on its own barrier (armed for C * 4 bytes), and thread 0
+// arms it again for row r + 2.  No thread polls: the card measured all warps
+// polling their slots 320 ns a row slower, and warp 0 polling alone behind
+// a CTA barrier 90 ns slower (PERF.md).
+//   kSpan 2, a cooperative grid: thread 0 publishes the total in global
+// memory with release, tagged with its row ((r mod 2^20) << 12 | total, the
+// slots filled with 0xFFFFFFFF at launch), warp 0 polls the C slots with
+// acquire and copies them into shared memory, and a CTA barrier hands them
+// to the other warps.
+template <int kSpan>
+__device__ __forceinline__ void span_exchange(const DecodeArgs& a, uint32_t* xchg_s, uint64_t* row_bar, int g,
+                                              int rank, int r, int warp, int wl, uint32_t& before,
+                                              uint32_t& total) {
+  uint32_t* slots = xchg_s + (r & 1) * kMaxSpan;
+  if (kSpan == 1) {
+    uint64_t* bar = row_bar + (r & 1);
+    if (warp == 0 && wl < a.ctas) st_async_peer(slots + rank, bar, wl, total);
+    mbar_wait(bar, (r >> 1) & 1);
+    if (warp == 0 && wl == 0 && r + 2 < a.rows) mbar_expect(bar, 4u * a.ctas);
+  } else {
+    const uint32_t tag = static_cast<uint32_t>(r) & 0xFFFFFu;
+    uint32_t* gs = a.xchg + (static_cast<size_t>(g) * 2 + (r & 1)) * a.ctas;
+    if (warp == 0) {
+      if (wl == 0) st_release_gpu(gs + rank, (tag << 12) | total);
+      for (int c = wl; c < a.ctas; c += 32) {
+        uint32_t v = ld_acquire_gpu(gs + c);
+        while ((v >> 12) != tag) v = ld_acquire_gpu(gs + c);
+        slots[c] = v & 0xFFFu;
+      }
+    }
+    __syncthreads();
+  }
+  const uint32_t lo = wl < a.ctas ? slots[wl] : 0u;
+  const uint32_t hi = kSpan == 2 && wl + 32 < a.ctas ? slots[wl + 32] : 0u;
+  before += __reduce_add_sync(0xFFFFFFFFu, (wl < rank ? lo : 0u) + (wl + 32 < rank ? hi : 0u));
+  total = __reduce_add_sync(0xFFFFFFFFu, lo + hi);
 }
 
 // The table's copies: `bytes` at src into the same offsets of dst in every
@@ -297,11 +401,14 @@ __device__ __forceinline__ void issue_chunk(const DecodeArgs& a, const uint16_t*
 
 // kGrouped = false is the single stream: one CTA, kt = lanes, so the group
 // offsets and the padding tests compile away.  kOneWarp: a grouped CTA of
-// one warp (lanes == 32).
-template <bool kSmemTable, bool kGrouped, bool kOneWarp>
+// one warp (lanes == 32).  kSpan (grouped): each group spans a.ctas CTAs of
+// a.lanes threads, CTA rank c taking the group's lanes [c * lanes, (c + 1) *
+// lanes); 1: the group is a thread-block cluster, 2: a share of a
+// cooperative grid.
+template <bool kSmemTable, bool kGrouped, bool kOneWarp, int kSpan>
 __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout l = layout(a, kSmemTable);
+  const Layout l = layout(a, kSmemTable, kSpan != 0);
   uint8_t* counts = smem;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + l.bar);  // the table's copies
   uint16_t* base_s = reinterpret_cast<uint16_t*>(smem + l.bases);  // rows' first entries
@@ -310,9 +417,12 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   int32_t* idx_ring = reinterpret_cast<int32_t*>(smem + l.idx);
   uint8_t* kp_ring = smem + l.kp;
   uint16_t* ring = reinterpret_cast<uint16_t*>(smem + l.ring);
+  uint32_t* xchg_s = reinterpret_cast<uint32_t*>(smem + l.xchg);  // kSpan: the row totals
+  uint64_t* row_bar = reinterpret_cast<uint64_t*>(xchg_s + 2 * kMaxSpan);  // kSpan 1: the rows' barriers
 
   const int t = threadIdx.x;
-  const int g = kGrouped ? blockIdx.x : 0;  // the group
+  const int rank = kSpan ? static_cast<int>(blockIdx.x) % a.ctas : 0;  // the CTA's place in its group
+  const int g = kSpan ? static_cast<int>(blockIdx.x) / a.ctas : kGrouped ? blockIdx.x : 0;  // the group
   // kept at run time in the one-warp row too: with lanes = 32 and warp = 0
   // compiled in, its row ran ~80 ns slower on the card (PERF.md)
   const int lanes = a.lanes;
@@ -322,29 +432,35 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   const unsigned below = (1u << wl) - 1u;
   const int ring_mask = a.ring_words - 1;
   const int ring_chunks = a.ring_words / kChunk;
-  const bool live = !kGrouped || t < a.kt;  // not a padding thread
-  const int lane = g * a.kt + t;  // column in the (P, K) grids
+  const int ncols = kSpan ? min(lanes, a.kt - rank * lanes) : a.kt;  // the CTA's lanes of its group
+  const bool live = !kGrouped || t < ncols;  // not a padding thread
+  const int lane = g * a.kt + rank * lanes + t;  // column in the (P, K) grids
   const uint16_t* stream = a.stream + g * a.n_stream;
-  const int32_t* idx = a.idx + g * a.in_group;
-  const uint8_t* kp = a.kp + g * a.in_group;
+  const int32_t* idx = a.idx + g * a.in_group + rank * lanes;
+  const uint8_t* kp = a.kp + g * a.in_group + rank * lanes;
 
   uint32_t x = live ? a.states_in[lane] : kRansL;
   int offset = a.offset_in[g];
   // the same for every CTA of a launch, so a cluster returns here whole
   if (a.rows == 0) {
     if (live) a.states_out[lane] = x;
-    if (t == 0) a.offset_out[g] = offset;
+    if (t == 0 && rank == 0) a.offset_out[g] = offset;
     return;
   }
 
   // ---- prologue: the table (by bulk copies in the grouped launch, by the
   // CTA's cp.async in the single stream), the first kDepth rows and a full
-  // stream ring by cp.async, all in flight together
-  constexpr bool kBulk = kSmemTable && kGrouped;
+  // stream ring (none when spanning) by cp.async, all in flight together
+  constexpr bool kBulk = kSmemTable && kGrouped && kSpan != 2;
   const uint32_t ncta = kBulk ? cluster_size() : 1u;
   const uint32_t starts_bytes = 2u * a.span_len;
   const uint32_t bucket_bytes = 2u * a.nrows * a.bucket_stride;
   if (kBulk && t == 0) mbar_arm(bar, starts_bytes + bucket_bytes);
+  if (kSpan == 1 && t == 0) {
+    // rows 0 and 1 wait for the C totals' bytes; each is armed again later
+    mbar_arm(row_bar, 4u * a.ctas);
+    mbar_arm(row_bar + 1, 4u * a.ctas);
+  }
   for (int e = t; e < 64; e += lanes) counts[e] = 0;
   if (kSmemTable) {
     for (int e = t; e < a.nrows; e += lanes) {
@@ -358,22 +474,23 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     for (int c = t; c < a.nrows * a.bucket_stride / 8; c += lanes)
       cp_async16(bucket_s + 8 * c, a.buckets + 8 * c, 16);
   }
-  const RowCopy rcopy = row_copy<kGrouped>(lanes, a.kt);
+  const RowCopy rcopy = row_copy<kGrouped>(lanes, ncols);
   for (int rr = 0; rr < kDepth; rr += kRefill)
     issue_rows<kGrouped>(a, rcopy, idx, kp, idx_ring, kp_ring, rr);
   long long filled = offset / kChunk;  // next chunk to copy
   for (int c = warp; c < ring_chunks; c += nwarps) issue_chunk(a, stream, ring, filled + c);
   filled += ring_chunks;
   cp_async_commit();
-  if (kBulk) {
-    // every CTA of the cluster has armed its barrier before any copy lands
-    // (in a cluster of one: the issuing warp sees thread 0's arming)
+  if (kBulk || kSpan == 1) {
+    // every CTA of the cluster has armed its barriers before any copy or
+    // total lands (in a cluster of one: the issuing warp sees thread 0's
+    // arming)
     cluster_arrive();
     cluster_wait();
-    if (warp == 0) {
-      const uint32_t rank = cluster_rank();
-      bulk_table(starts_s, a.starts + a.span_base, starts_bytes, bar, rank, ncta, wl);
-      bulk_table(bucket_s, a.buckets, bucket_bytes, bar, rank, ncta, wl);
+    if (kBulk && warp == 0) {
+      const uint32_t crank = cluster_rank();
+      bulk_table(starts_s, a.starts + a.span_base, starts_bytes, bar, crank, ncta, wl);
+      bulk_table(bucket_s, a.buckets, bucket_bytes, bar, crank, ncta, wl);
     }
   }
   cp_async_wait<0>();
@@ -408,7 +525,8 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   const uint16_t* starts = kSmemTable ? starts_s : a.starts;
 
   size_t i = lane;
-  const size_t out_row = kGrouped ? static_cast<size_t>(gridDim.x) * a.kt : lanes;  // K
+  const size_t out_row = kSpan ? static_cast<size_t>(gridDim.x / a.ctas) * a.kt
+                         : kGrouped ? static_cast<size_t>(gridDim.x) * a.kt : lanes;  // K
   for (int r = 0; r < a.rows; ++r, i += out_row) {
     // the next row's inputs do not depend on the state: their loads go out
     // first and land while this row's chain runs
@@ -469,9 +587,12 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
       const uint32_t c = cnt[wl];
       before = __reduce_add_sync(0xFFFFFFFFu, wl < warp ? c : 0u);
       total = __reduce_add_sync(0xFFFFFFFFu, c);
+      if (kSpan) span_exchange<kSpan>(a, xchg_s, row_bar, g, rank, r, warp, wl, before, total);
     }
     // every lane reads (the ring index is masked), only flagged lanes use it
-    const uint32_t word = ring[(offset + static_cast<int>(before) + __popc(ballot & below)) & ring_mask];
+    const int pos = offset + static_cast<int>(before) + __popc(ballot & below);
+    // a spanning stream has no ring: the word comes from global memory
+    const uint32_t word = kSpan ? (flag && pos < a.n_stream ? stream[pos] : 0u) : ring[pos & ring_mask];
     if (flag) adv = (adv << 16) | word;
     if (keep) x = adv;
 
@@ -479,10 +600,12 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
     // chunks wholly below offset
     if (r % kRefill == 0) {
       issue_rows<kGrouped>(a, rcopy, idx, kp, idx_ring, kp_ring, r + kDepth);
-      const long long free_chunks = offset / kChunk + ring_chunks - filled;
-      const int n_issue = static_cast<int>(min(free_chunks, static_cast<long long>(nwarps)));
-      if (warp < n_issue) issue_chunk(a, stream, ring, filled + warp);
-      filled += max(n_issue, 0);
+      if (!kSpan) {
+        const long long free_chunks = offset / kChunk + ring_chunks - filled;
+        const int n_issue = static_cast<int>(min(free_chunks, static_cast<long long>(nwarps)));
+        if (warp < n_issue) issue_chunk(a, stream, ring, filled + warp);
+        filled += max(n_issue, 0);
+      }
       cp_async_commit();
     }
 
@@ -491,19 +614,18 @@ __global__ void __launch_bounds__(1024) rans_decode_scan_kernel(const DecodeArgs
   }
   cp_async_wait<0>();
   if (live) a.states_out[lane] = x;
-  if (t == 0) a.offset_out[g] = offset;
+  if (t == 0 && rank == 0) a.offset_out[g] = offset;
   // every peer's table has landed: no copy issued here still writes there
   if (kBulk) cluster_wait();
 }
 
 constexpr int kMaxDevices = 64;
-constexpr int kMaxCluster = 8;  // the portable cluster size
 
-template <bool kSmemTable, bool kGrouped, bool kOneWarp>
+template <bool kSmemTable, bool kGrouped, bool kOneWarp, int kSpan>
 int launch(const DecodeArgs& a, int groups, int cluster, int smem_cap, cudaStream_t stream) {
-  const int bytes = layout(a, kSmemTable).total;
+  const int bytes = layout(a, kSmemTable, kSpan != 0).total;
   if (bytes > smem_cap) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = rans_decode_scan_kernel<kSmemTable, kGrouped, kOneWarp>;
+  auto kernel = rans_decode_scan_kernel<kSmemTable, kGrouped, kOneWarp, kSpan>;
   // lift the kernel's dynamic shared-memory limit to the device's opt-in
   // maximum, once per device (setting it twice from racing threads is
   // harmless)
@@ -519,40 +641,57 @@ int launch(const DecodeArgs& a, int groups, int cluster, int smem_cap, cudaStrea
     if (err != cudaSuccess) return static_cast<int>(err);
     if (device < kMaxDevices) lifted[device].store(true, std::memory_order_relaxed);
   }
-  // the grouped shared-table path runs as clusters of `cluster` CTAs; the
-  // single stream and the global-table path copy no table by bulk copies
-  // and have none
+  // the grouped shared-table path runs as clusters of `cluster` CTAs, a
+  // spanning group as a cluster of its a.ctas CTAs (kSpan 1) or as a share
+  // of a cooperative grid, every CTA resident (kSpan 2); the single stream
+  // and the grouped global-table path copy no table by bulk copies and have
+  // none
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  if (kSpan == 2) {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kSpan == 1 ? a.ctas : cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(groups);
+  cfg.gridDim = dim3(groups * a.ctas);
   cfg.blockDim = dim3(a.lanes);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = kSmemTable && kGrouped ? 1 : 0;
+  cfg.numAttrs = (kSmemTable && kGrouped) || kSpan ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   const cudaError_t last = cudaGetLastError();  // and clear it
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// Checks shared by both entries, then the launch of `groups` CTAs.
-template <bool kGrouped>
-int run(DecodeArgs& a, int groups, int cluster, const void* starts, const void* buckets, const void* meta,
-        int row0, int nrows, int span_base, int span_len, int shift, int bucket_stride, int ring_words,
-        int table_in_smem, int smem_cap, void* states_out, void* offset_out, void* cums, int rows,
-        void* stream) {
+// Checks shared by every entry, then the launch of `groups` groups.
+// kSpan = -1: a spanning launch, its route (cluster or grid) from `grid`.
+template <bool kGrouped, int kSpan>
+int run(DecodeArgs& a, int groups, int cluster, bool grid, const void* starts, const void* buckets,
+        const void* meta, int row0, int nrows, int span_base, int span_len, int shift, int bucket_stride,
+        int ring_words, int table_in_smem, int smem_cap, void* states_out, void* offset_out, void* cums,
+        int rows, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  if (groups < 1 || a.kt < 1 || a.kt > 1024 || a.lanes % 32 || a.lanes < a.kt || a.lanes - a.kt >= 32)
+  if (groups < 1 || a.kt < 1 || a.lanes % 32 || a.lanes < 32 || a.lanes > 1024) return bad;
+  if (kSpan == 0) {
+    if (a.ctas != 1 || a.lanes < a.kt || a.lanes - a.kt >= 32) return bad;
+    if (cluster < 1 || cluster > kMaxCluster || groups % cluster || (!table_in_smem && cluster != 1))
+      return bad;
+  } else {
+    // every CTA holds at least one of its group's lanes
+    if (a.ctas < 2 || a.ctas > (grid ? kMaxSpan : kMaxCluster) || a.ctas * a.lanes < a.kt ||
+        (a.ctas - 1) * a.lanes >= a.kt || (grid && a.xchg == nullptr))
+      return bad;
+  }
+  // a spanning stream has no ring
+  if (kSpan == 0 ? ring_words < 2 * kRefill * a.lanes + kChunk || (ring_words & (ring_words - 1)) != 0
+                 : ring_words != 0)
     return bad;
-  if (cluster < 1 || cluster > kMaxCluster || groups % cluster || (!table_in_smem && cluster != 1))
-    return bad;
-  if (ring_words < 2 * kRefill * a.lanes + kChunk || (ring_words & (ring_words - 1)) != 0 || nrows < 1)
-    return bad;
-  if (a.in_row % 16 || a.in_group % 16 || rows < 0) return bad;
+  if (nrows < 1 || a.in_row % 16 || a.in_group % 16 || rows < 0) return bad;
   if (table_in_smem && (shift < 1 || shift > 16 || bucket_stride % 8 || span_base % 8 ||
                         span_len % 8 || span_len > 65536))
     return bad;
@@ -571,14 +710,40 @@ int run(DecodeArgs& a, int groups, int cluster, const void* starts, const void* 
   a.cums = static_cast<int32_t*>(cums);
   a.rows = rows;
   auto s = static_cast<cudaStream_t>(stream);
+  if (kSpan != 0) {
+    if (grid)
+      return table_in_smem ? launch<true, true, false, 2>(a, groups, 1, smem_cap, s)
+                           : launch<false, true, false, 2>(a, groups, 1, smem_cap, s);
+    return table_in_smem ? launch<true, true, false, 1>(a, groups, 1, smem_cap, s)
+                         : launch<false, true, false, 1>(a, groups, 1, smem_cap, s);
+  }
   // the one-warp row is the grouped launch's (kGrouped as kOneWarp: the
   // single stream instantiates no one-warp kernel)
   const bool one_warp = kGrouped && a.lanes == 32;
   if (table_in_smem)
-    return one_warp ? launch<true, kGrouped, kGrouped>(a, groups, cluster, smem_cap, s)
-                    : launch<true, kGrouped, false>(a, groups, cluster, smem_cap, s);
-  return one_warp ? launch<false, kGrouped, kGrouped>(a, groups, 1, smem_cap, s)
-                  : launch<false, kGrouped, false>(a, groups, 1, smem_cap, s);
+    return one_warp ? launch<true, kGrouped, kGrouped, 0>(a, groups, cluster, smem_cap, s)
+                    : launch<true, kGrouped, false, 0>(a, groups, cluster, smem_cap, s);
+  return one_warp ? launch<false, kGrouped, kGrouped, 0>(a, groups, 1, smem_cap, s)
+                  : launch<false, kGrouped, false, 0>(a, groups, 1, smem_cap, s);
+}
+
+DecodeArgs grouped_args(const void* states_in, const void* offset_in, const void* streams,
+                        long long row_words, const void* idx, const void* kp, long long in_group,
+                        int in_row, int kt, int lanes, int ctas) {
+  DecodeArgs a;
+  a.states_in = static_cast<const uint32_t*>(states_in);
+  a.offset_in = static_cast<const int32_t*>(offset_in);
+  a.stream = static_cast<const uint16_t*>(streams);
+  a.n_stream = row_words;
+  a.idx = static_cast<const int32_t*>(idx);
+  a.kp = static_cast<const uint8_t*>(kp);
+  a.in_group = in_group;
+  a.in_row = in_row;
+  a.kt = kt;
+  a.lanes = lanes;
+  a.ctas = ctas;
+  a.xchg = nullptr;
+  return a;
 }
 
 }  // namespace
@@ -586,9 +751,10 @@ int run(DecodeArgs& a, int groups, int cluster, const void* starts, const void* 
 // C interface for ctypes.  Every pointer is a device pointer; `stream` is a
 // cudaStream_t.  The wrapper's plan_decode picks shift, bucket_stride and
 // ring_words with the same layout; the launch refuses more than smem_cap
-// bytes.  Both need the compact table's arguments as planned, starts,
+// bytes.  They need the compact table's arguments as planned, starts,
 // buckets and the idx / keep blocks 16-byte aligned, and ring_words a power
-// of two >= 2 * kRefill * (CTA threads) + kChunk.  They return
+// of two >= 2 * kRefill * (the CTA's threads) + kChunk (0 for a spanning
+// stream, which reads its words from global memory).  They return
 // cudaGetLastError() after the launch (0 = launched).
 
 // One stream of `lanes` lanes: 32 <= lanes <= 1024, lanes % 32 == 0; idx
@@ -601,20 +767,11 @@ extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
                                 int smem_cap, void* states_out, void* offset_out, void* cums,
                                 int rows, int lanes, void* stream) {
   if (lanes < 32 || lanes > 1024 || lanes % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  DecodeArgs a;
-  a.states_in = static_cast<const uint32_t*>(states_in);
-  a.offset_in = static_cast<const int32_t*>(offset_in);
-  a.stream = static_cast<const uint16_t*>(stream_words);
-  a.n_stream = n_stream;
-  a.idx = static_cast<const int32_t*>(idx);
-  a.kp = static_cast<const uint8_t*>(kp);
-  a.in_group = 0;
-  a.in_row = lanes;
-  a.kt = lanes;
-  a.lanes = lanes;
-  return run<false>(a, 1, 1, starts, buckets, meta, row0, nrows, span_base, span_len, shift,
-                    bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out, cums,
-                    rows, stream);
+  DecodeArgs a = grouped_args(states_in, offset_in, stream_words, n_stream, idx, kp, 0, lanes, lanes,
+                              lanes, 1);
+  return run<false, 0>(a, 1, 1, false, starts, buckets, meta, row0, nrows, span_base, span_len, shift,
+                       bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out, cums,
+                       rows, stream);
 }
 
 // G = `groups` streams of kt lanes each (K = groups * kt lanes in all),
@@ -622,7 +779,7 @@ extern "C" int rans_decode_scan(const void* states_in, const void* offset_in,
 // 1024), in clusters of `cluster` CTAs (1 <= cluster <= 8, a divisor of G;
 // 1 on the global-table path).  A cluster that cannot be scheduled fails
 // the launch.  states_in (K,), offset_in (G,), streams (G, row_words) with
-// row_words % 8 == 0; group g's idx / kp block starts at element
+// row_words % 8 == 0 when G > 1; group g's idx / kp block starts at element
 // g * in_group and its rows lie in_row elements apart (in_row, in_group
 // multiples of 16); cums (rows, K).
 extern "C" int rans_decode_scan_grouped(const void* states_in, const void* offset_in,
@@ -634,19 +791,34 @@ extern "C" int rans_decode_scan_grouped(const void* states_in, const void* offse
                                         int smem_cap, void* states_out, void* offset_out, void* cums,
                                         int rows, int groups, int kt, int lanes, int cluster,
                                         void* stream) {
-  if (row_words % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte aligned rows
-  DecodeArgs a;
-  a.states_in = static_cast<const uint32_t*>(states_in);
-  a.offset_in = static_cast<const int32_t*>(offset_in);
-  a.stream = static_cast<const uint16_t*>(streams);
-  a.n_stream = row_words;
-  a.idx = static_cast<const int32_t*>(idx);
-  a.kp = static_cast<const uint8_t*>(kp);
-  a.in_group = in_group;
-  a.in_row = in_row;
-  a.kt = kt;
-  a.lanes = lanes;
-  return run<true>(a, groups, cluster, starts, buckets, meta, row0, nrows, span_base, span_len, shift,
-                   bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out, cums,
-                   rows, stream);
+  if (groups > 1 && row_words % 8) return static_cast<int>(cudaErrorInvalidValue);  // 16-byte aligned rows
+  DecodeArgs a = grouped_args(states_in, offset_in, streams, row_words, idx, kp, in_group, in_row, kt,
+                              lanes, 1);
+  return run<true, 0>(a, groups, cluster, false, starts, buckets, meta, row0, nrows, span_base, span_len,
+                      shift, bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out,
+                      cums, rows, stream);
+}
+
+// The same for groups of kt > 1024 lanes, each spanning `ctas` CTAs of
+// `lanes` threads (the last CTA holds the rest of the group): thread-block
+// clusters of `ctas` CTAs (2 <= ctas <= 8), or with `grid` one cooperative
+// grid of every group's CTAs (ctas <= 64) exchanging row totals through
+// `xchg`, (groups, 2, ctas) uint32 filled with 0xFFFFFFFF.  A launch that
+// cannot be scheduled (cluster or grid) fails.  Group g's idx / kp block
+// holds ctas * lanes columns when staged (in_row = ctas * lanes), else kt.
+extern "C" int rans_decode_scan_span(const void* states_in, const void* offset_in, const void* streams,
+                                     long long row_words, const void* idx, const void* kp,
+                                     long long in_group, int in_row, const void* starts,
+                                     const void* buckets, const void* meta, int row0, int nrows,
+                                     int span_base, int span_len, int shift, int bucket_stride,
+                                     int ring_words, int table_in_smem, int smem_cap, void* states_out,
+                                     void* offset_out, void* cums, int rows, int groups, int kt,
+                                     int lanes, int ctas, int grid, void* xchg, void* stream) {
+  if (groups > 1 && row_words % 8) return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a = grouped_args(states_in, offset_in, streams, row_words, idx, kp, in_group, in_row, kt,
+                              lanes, ctas);
+  a.xchg = static_cast<uint32_t*>(xchg);
+  return run<true, -1>(a, groups, 1, grid != 0, starts, buckets, meta, row0, nrows, span_base, span_len,
+                       shift, bucket_stride, ring_words, table_in_smem, smem_cap, states_out, offset_out,
+                       cums, rows, stream);
 }

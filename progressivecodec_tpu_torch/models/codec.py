@@ -18,7 +18,7 @@ import torch
 
 from progressivecodec_tpu_torch.coder.rans_device import DeviceTables
 from progressivecodec_tpu_torch.coder.tables import (
-    DEFAULT_LANES, PRECISION, check_groups, check_lanes, merge_tables,
+    DEFAULT_LANES, MAX_LANES, PRECISION, check_groups, check_lanes, merge_tables,
 )
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import build_bottleneck_tables
@@ -94,9 +94,12 @@ class Codec:
         (n_words u32 | n_esc_words u32 | words | escape words)."""
         mp = (data["mask_pol"] or self.cfg.mask_policy).encode()
         groups = int(data.get("groups", 1))
+        lanes = data.get("lanes", self.lanes)
+        if int(lanes) != lanes or not 0 <= lanes <= MAX_LANES:
+            raise ValueError(f"lanes {lanes!r} do not fit the container's u16")
         head = MAGIC + struct.pack(
             "<BfHHHHBB", FORMAT_VERSION, data["quality"], data["batch"],
-            *data["z_shape"], int(data.get("lanes", self.lanes)), groups, len(mp),
+            *data["z_shape"], int(lanes), groups, len(mp),
         )
         if groups > 1:
             segments = list(zip(data["streams"], data["escs"]))

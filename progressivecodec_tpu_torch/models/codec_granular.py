@@ -56,9 +56,10 @@ class GranularCodec(Codec):
 
     def __init__(self, model, lanes: int = DEFAULT_LANES, groups: int = 1, coder_mesh=None,
                  coder_axis: str = "model", lane_policy: str = "fixed", device=None):
-        """lanes: with one stream a multiple of 32 in [32, 1024] (one decode
-        CTA of whole warps); with groups > 1 (the PCT1-G wire format) a
-        multiple of groups with at most 1024 per group.  coder_mesh: a
+        """lanes: any integer in [1, 65535] (the container's u16), with
+        groups > 1 (the PCT1-G wire format) a multiple of groups; a stream or
+        group wider than 1,024 lanes decodes on several CTAs
+        (`rans_cuda.decode_span`).  coder_mesh: a
         DeviceMesh (parallel/mesh.py) whose `coder_axis` runs the G groups
         one per rank (parallel/sharded_coder.py); groups defaults to the
         axis size and must equal it.  The containers are those of

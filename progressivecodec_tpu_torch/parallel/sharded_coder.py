@@ -14,7 +14,8 @@ kernels, on its own device:
   * decode, stage by stage (a later slice's parameters depend on the
     values decoded before it): rank g decodes its block from its own
     sub-stream with one launch of the grouped decode kernel
-    (`rans_cuda.rans_decode_scan_grouped`, G = 1, kt lanes), resolves its
+    (`rans_cuda.rans_decode_scan_grouped`, G = 1, kt lanes: one CTA, or
+    for kt > 1,024 a cluster or grid of CTAs), resolves its
     escapes, and an all_gather puts every rank's values back in global
     symbol order, with the decoder state of every group.
 The wire format does not depend on the topology: a sharded container

@@ -174,11 +174,13 @@ def test_encode_scan_pads_a_lane_count_off_the_warp(tables):
 
 
 @pytest.mark.parametrize("lanes,groups,ok", [(64, 4, True), (32, 4, True), (64, 64, True), (96, 3, True),
-                                             (4096, 4, True), (48, 1, False), (66, 4, False),
-                                             (4100, 4, False), (2 ** 16, 256, False), (8, 0, False)])
+                                             (4096, 4, True), (48, 1, True), (66, 4, False),
+                                             (4100, 4, True), (2 ** 16, 256, False), (8, 0, False),
+                                             (0, 1, False), (2 ** 16, 1, False)])
 def test_grouped_lane_checks(lanes, groups, ok):
-    """With groups > 1 a lane count is any multiple of groups with at most
-    1024 lanes per group; groups lie in [1, 255] (the container's u8)."""
+    """A lane count is what JAX's codec takes: an integer in [1, 65535] (the
+    container's u16), with groups > 1 a multiple of groups, however wide a
+    group; groups lie in [1, 255] (the container's u8)."""
     if ok:
         assert check_lanes(lanes, check_groups(groups)) == lanes
     else:

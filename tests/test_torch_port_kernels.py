@@ -389,8 +389,14 @@ def test_decode_kernel_every_lane_renormalises_every_row(cuda_device, tables):
 
 
 @pytest.mark.cuda
-def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device):
-    k = 48
+def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device, tables):
+    """K = 48 is not a whole number of warps: it runs as one group of the
+    grouped instance, bit for bit against the twin.  What no launch can
+    hold is more lanes than 64 CTAs of 1,024 threads, and the wrapper
+    refuses it before it launches anything."""
+    _decode_on_card(tables[0], cuda_device, 48, 3000, 48)
+    k = 65537
+    launches = rans_cuda.rans_decode_scan.launches
     with pytest.raises(ValueError, match="lanes"):
         rans_cuda.rans_decode_scan(
             torch.zeros(k, dtype=torch.int32, device=cuda_device),
@@ -399,7 +405,51 @@ def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device):
             torch.zeros((1, k), dtype=torch.int32, device=cuda_device),
             torch.zeros((1, k), dtype=torch.uint8, device=cuda_device),
             torch.zeros(1 << 16, dtype=torch.int32, device=cuda_device),
+            rans_device.DeviceTables.from_tables(tables[0], cuda_device).compact,
         )
+    assert rans_cuda.rans_decode_scan.launches == launches
+
+
+def _span_cap(tables_np, lanes, path):
+    """A shared-memory cap for a stream of `lanes` lanes: the card's budget
+    ("default"), or the default plan's rings without the table ("global")."""
+    if path == "default":
+        return None
+    compact = rans_cuda.CompactCdf(tables_np.cdf, tables_np.cdf_length, "cpu")
+    p = rans_cuda.plan_decode(compact, (0, tables_np.cdf.shape[0]), lanes, 232_448)
+    return rans_cuda.decode_smem_bytes(p.cta_lanes, p.nrows, p.span_len, 0, p.ring_words, False, p.ctas)
+
+
+def _route(lanes):
+    return None if lanes <= 1024 else ("cluster" if lanes <= 8192 else "grid")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "global"])
+@pytest.mark.parametrize("lanes", [48, 1056, 2048, 4096, 8192, 16384])
+def test_spanning_decode_kernel_matches_twin(cuda_device, tables, lanes, path):
+    """One stream at every kind of lane count: whole warps off 32 (K=48, the
+    grouped instance), a cluster of 7 and 8 CTAs (K = 1056, 2048, 4096,
+    8192), a cooperative grid of 16 CTAs (16384), the spanning CTAs reading
+    their words from global memory; on the shared and the global table."""
+    route = _route(lanes)
+    before = dict(rans_cuda.SPAN_LAUNCHES)
+    _decode_on_card(tables[0], cuda_device, lanes, 24 * lanes + lanes // 3, lanes + 1,
+                    smem_cap=_span_cap(tables[0], lanes, path))
+    for r in ("cluster", "grid"):
+        assert rans_cuda.SPAN_LAUNCHES[r] - before[r] == (r == route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "global"])
+@pytest.mark.parametrize("lanes,groups", [(4100, 4), (4096, 2)])
+def test_spanning_grouped_decode_kernel_matches_twin(cuda_device, tables, lanes, groups, path):
+    """Groups wider than one CTA: kt = 1025 (staged, clusters of 7 CTAs of
+    160 threads) and kt = 2048 (clusters of 8 CTAs of 256)."""
+    before = rans_cuda.SPAN_LAUNCHES["cluster"]
+    _grouped_on_card(tables[0], cuda_device, lanes, groups, 20 * lanes, 7,
+                     smem_cap=_span_cap(tables[0], lanes // groups, path))
+    assert rans_cuda.SPAN_LAUNCHES["cluster"] - before == 2
 
 
 @pytest.mark.cuda
