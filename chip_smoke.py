@@ -125,6 +125,17 @@ printing a result:
      1, q=5) and K=16384 (batch 8, q=10), each with stream_ok and y_hat
      bit-exact, the cluster and grid launches counted; then
      `tools.bench_coder` over K in {512, 1024, 2048, 4096}.
+ 11. the codec tools of `progressivecodec_tpu_torch/tools/` through their
+     `main`: `profile_codec` in both modes (the flagship at 768x512, q=10,
+     n=4; the per-phase table, calls per round trip checked, and in the trace
+     every device event charged to a phase), `bench_2k` (2048x1024, n=4;
+     the one-rank tiled stream must equal the untiled one), `rd_ladder` on
+     phase 7's last checkpoint (coarse grid, 2 SyntheticKodak images),
+     killed after 5 points and resumed (exactly the 7 missing points coded),
+     `rem_flagship` on that checkpoint (10 bank steps, 2 images; identity at
+     init, frozen base unchanged, banks moved), `rem_demo` (20 base and 20
+     bank steps) and `bd_trajectory` on phase 7's metrics.jsonl; the
+     launches of each tool, zeroed before it and read after it.
 `python3 chip_smoke.py --ab [--lanes K,...] OTHER_CHECKOUT...` runs only
 `scan_split`, on other checkouts of the repo and on this one, in separate
 processes ordered others, this, this, others reversed (`ab_split`): at the
@@ -135,7 +146,8 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
 (phase 8's map-ranked round trip) and `rd_sweep_launches`; the first three
-entries carry `sharded_launches`, the launches phase 9's ranks made.  The
+entries carry `sharded_launches`, the launches phase 9's ranks made, and
+`tools_launches`, phase 11's per tool.  The
 spanning decode's two instances follow, `rans_decode_scan_cluster` (timed
 at K=2048, its launches from the K=2048 round trip) and
 `rans_decode_scan_grid` (K=16384).
@@ -964,12 +976,14 @@ def _dir_bytes(path) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def check_training(dev, smi):
+def check_training(dev, smi, keep=None):
     """Phase 7: `cli.train` on the flagship ModelConfig() at TrainConfig()
     defaults (batch 16, patch 256), 2 epochs of 4 steps, then a resume to
     epoch 3, then `cli.eval --checkpoint` on its last checkpoint, then one
-    step on the card against the same step on the CPU.  Returns the encode
-    and decode launches counted during the trainer's real-codec evals."""
+    step on the card against the same step on the CPU.  The run directory
+    (metrics.jsonl, ckpt_last, ckpt_best) is moved to `keep` when given.
+    Returns the encode and decode launches counted during the trainer's
+    real-codec evals."""
     import os
     import shutil
     import tempfile
@@ -1058,6 +1072,8 @@ def check_training(dev, smi):
     finally:
         train_cli.make_train_step, train_cli.evaluate_codec, train_cli.save_checkpoint = (
             make_step, evaluate, save)
+        if keep is not None and os.path.isdir(out):
+            shutil.move(out, keep)
         shutil.rmtree(tmp, ignore_errors=True)
 
     later = step_ms[1:8] + step_ms[9:]  # each run's first step warms up
@@ -1977,6 +1993,136 @@ def check_lane_counts(dev, smi):
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+
+class _Killed(Exception):
+    """Stands in for a kill of the RD ladder between two points."""
+
+
+def check_tools(dev, smi, run_dir):
+    """Phase 11: the port's codec tools through their `main` on the card:
+    `profile_codec` in both modes (flagship, 768x512, q=10, n=4),
+    `bench_2k` (2048x1024, n=4), `rd_ladder` on phase 7's last checkpoint
+    (`run_dir`) over the coarse grid and 2 SyntheticKodak images, killed
+    after 5 points and resumed, `rem_flagship` on that checkpoint (10 bank
+    steps, 2 images), `rem_demo` (20 base and 20 bank steps) and
+    `bd_trajectory` on phase 7's metrics.jsonl.  The launches are zeroed
+    before each tool and read after it.  Returns {tool: (encode, decode,
+    grouped decode) launches}."""
+    import os
+    import tempfile
+
+    from progressivecodec_tpu_torch.config import ModelConfig
+    from progressivecodec_tpu_torch.tools import (
+        bd_trajectory, bench_2k, profile_codec, rd_ladder, rem_demo, rem_flagship,
+    )
+
+    cfg = ModelConfig()
+    launches = {}
+
+    def run(name, fn):
+        zero_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s, launches (encode, decode, grouped "
+            f"decode) {launches[name]}")
+        return out
+
+    for mode in ("blocking", "trace"):
+        rec = run(f"profile_codec {mode}", lambda: profile_codec.main(["--mode", mode, "--n", "4"]))
+        require(rec["stream_ok"] and rec["y_hat_exact"] and rec["containers_equal_plain"]
+                and rec["nvidia_smi"] == smi, f"profile_codec {mode}: {rec}")
+        rows = rec["phases"]
+        want = {"frag:analyze": 1, "frag:codec_base_step": 2 * (cfg.ns0 - 1),
+                "coder:encode_scan_rev": 1, "coder:decode_stage_scan": 1 + cfg.ns0 + 1}
+        got = {k: rows[k]["calls"] for k in want}
+        require(got == want, f"profile_codec {mode}: calls per round trip {got}, want {want}")
+        if mode == "trace":
+            require(rec["device_events"] == rec["device_events_in_trace"] > 0,
+                    f"profile_codec trace: {rec['device_events']} of "
+                    f"{rec['device_events_in_trace']} device events charged to a phase")
+            for k, n in (("coder:encode_scan_rev", 1), ("coder:decode_stage_scan", 12)):
+                require(rows[k]["device_ms"] > 0 and rows[k]["events"] >= n, f"{k}: {rows[k]}")
+            log(f"  profile_codec trace: device busy {rec['device_busy_ms']:.2f} ms, idle "
+                f"{rec['idle_share_traced']:.3f} of the traced {rec['traced_round_trip_ms']:.1f} ms "
+                f"and {rec['idle_share_untraced']:.3f} of the untraced "
+                f"{rec['untraced_round_trip_ms']:.1f} ms round trip")
+
+    rec = run("bench_2k", lambda: bench_2k.main(["--n", "4"]))
+    require(rec["stream_ok"] and rec["nvidia_smi"] == smi, f"bench_2k: {rec}")
+    require(rec["tiled_mesh1_bytes"] == rec["untiled_bytes"],
+            f"bench_2k: one-rank tiled stream {rec['tiled_mesh1_bytes']} bytes, untiled "
+            f"{rec['untiled_bytes']}")
+    log(f"  bench_2k 2048x1024: untiled {rec['untiled_ms_per_image']:.1f} ms, tiled on one rank "
+        f"{rec['tiled_mesh1_ms_per_image']:.1f} ms ({rec['halo_overhead_pct']:+.1f}%), "
+        f"{rec['untiled_bytes']} bytes")
+
+    ckpt = os.path.join(run_dir, "ckpt_last")
+    with tempfile.TemporaryDirectory() as tmp:
+        points = os.path.join(tmp, "points.jsonl")
+        args = ["--checkpoint", ckpt, "--grid", "coarse", "--n-images", "2", "--out-jsonl", points,
+                "--out", os.path.join(tmp, "rd.json")]
+        evaluate, coded = rd_ladder.evaluate_codec, []
+
+        def killed_after_5(*a, **kw):
+            if len(coded) == 5:
+                raise _Killed
+            coded.append(evaluate(*a, **kw))
+            return coded[-1]
+
+        rd_ladder.evaluate_codec = killed_after_5
+        try:
+            rd_ladder.main(args)
+            require(False, "rd_ladder was not killed")
+        except _Killed:
+            pass
+        finally:
+            rd_ladder.evaluate_codec = evaluate
+        with open(points) as f:
+            require(len(f.read().splitlines()) == 5, "rd_ladder: the killed run left no 5 points")
+        res = run("rd_ladder resumed", lambda: rd_ladder.main(args))
+        grid = rd_ladder.GRIDS["coarse"]
+        require(res["coded_this_run"] == list(grid[5:]) and res["qualities"] == list(grid)
+                and res["nvidia_smi"] == smi, f"rd_ladder resumed: {res}")
+        want = (2 * 7, 2 * sum(1 + cfg.ns0 + (q > 0) for q in grid[5:]), 0)
+        require(launches["rd_ladder resumed"] == want,
+                f"rd_ladder resumed: launches {launches['rd_ladder resumed']}, want {want}")
+        log(f"  rd_ladder: bpp {[round(v, 4) for v in res['bpp']]}, BD-rate "
+            f"{res['bd_rate_vs_fixed_pret']}, MS-SSIM max jump {res['ms_ssim_db_max_adjacent_jump']}")
+
+        res = run("rem_flagship", lambda: rem_flagship.main(
+            ["--checkpoint", ckpt, "--bank-steps", "10", "--n-images", "2",
+             "--out", os.path.join(tmp, "rem_flagship.json")]))
+        require(res["identity_at_init"] and res["frozen_unchanged"] and res["bank_tensors_moved"] > 0
+                and res["nvidia_smi"] == smi, f"rem_flagship: {res}")
+        log(f"  rem_flagship: delta {res['delta']}, bank loss {res['bank_loss_head_tail']}")
+
+        env = {k: os.environ.get(k) for k in ("REM_DEMO_BASE_STEPS", "REM_DEMO_BANK_STEPS")}
+        os.environ.update(REM_DEMO_BASE_STEPS="20", REM_DEMO_BANK_STEPS="20")
+        try:
+            res = run("rem_demo", lambda: rem_demo.main(["--out", os.path.join(tmp, "rem_demo.json")]))
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        require(res["identity_at_init"] and res["bank_tensors_moved"] > 0 and res["nvidia_smi"] == smi,
+                f"rem_demo: {res}")
+        log(f"  rem_demo: loss improvement vs base {res['loss_improvement_vs_base']:.4g}")
+
+        rows = run("bd_trajectory", lambda: bd_trajectory.main(
+            ["--run", run_dir, "--out", os.path.join(tmp, "bd.json")]))
+        sweeps = sum("test" in r for r in _records(run_dir))
+        require(len(rows) == sweeps, f"bd_trajectory: {len(rows)} rows for {sweeps} test sweeps")
+    return launches
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -2119,7 +2265,14 @@ def main() -> int:
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     log("phase 7: training the flagship ModelConfig() at TrainConfig() defaults")
-    train_enc, train_dec = check_training(dev, smi)
+    import atexit
+    import shutil
+    import tempfile
+
+    kept = tempfile.mkdtemp(prefix="chip_smoke_kept_")  # phase 7's run, for phase 11
+    atexit.register(shutil.rmtree, kept, ignore_errors=True)
+    run_dir = f"{kept}/run"
+    train_enc, train_dec = check_training(dev, smi, keep=run_dir)
 
     log("phase 8: importance masks, rd_sweep, profiling")
     t0 = time.perf_counter()
@@ -2139,23 +2292,32 @@ def main() -> int:
     spanning = check_lane_counts(dev, smi)
     log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 11: the codec tools on the card")
+    t0 = time.perf_counter()
+    tool_launches = check_tools(dev, smi, run_dir)
+    log(f"  phase 11 launches per tool (encode, decode, grouped decode): {tool_launches}")
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
              replaces="progressivecodec_tpu/coder/rans_pallas.py:117",
              launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
              cust_map_launches=map_launches[0], rd_sweep_launches=rd_launches[0],
-             sharded_launches=sharded[0], **results["rans_encode_scan"]),
+             sharded_launches=sharded[0], tools_launches={k: v[0] for k, v in tool_launches.items()},
+             **results["rans_encode_scan"]),
         dict(name="rans_decode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
              cust_map_launches=map_launches[1], rd_sweep_launches=rd_launches[1],
-             sharded_launches=sharded[1], **results["rans_decode_scan"]),
+             sharded_launches=sharded[1], tools_launches={k: v[1] for k, v in tool_launches.items()},
+             **results["rans_decode_scan"]),
         dict(name="rans_decode_scan_grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
              launches=grouped_counts["grouped"], library_ms=None, sharded_launches=sharded[2],
+             tools_launches={k: v[2] for k, v in tool_launches.items()},
              **results["rans_decode_scan_grouped"]),
     ] + spanning
     log(f"  total {time.perf_counter() - t_start:.1f} s")

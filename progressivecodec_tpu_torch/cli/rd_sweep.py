@@ -48,6 +48,16 @@ from progressivecodec_tpu_torch.utils.rd import (
 COARSE_GRID = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0)
 
 
+def bd_rate_vs_fixed_pret(bpp, psnr):
+    """BD-rate of (bpp, psnr) against the reference progressive anchor over
+    the overlapping range, or "n/a (why)": an untrained model's range may
+    not overlap it."""
+    try:
+        return bd_rate(PROGRESSIVE_ANCHOR_BPP, PROGRESSIVE_ANCHOR_PSNR, bpp, psnr)
+    except (ValueError, np.linalg.LinAlgError) as e:
+        return f"n/a ({e})"
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--checkpoint", type=str, default=None)
@@ -90,14 +100,7 @@ def main(argv=None) -> dict:
 
     result = {"qualities": grid, "bpp": res["bpp"], "psnr": res["psnr"],
               "ms_ssim_db": res["ms_ssim_db"]}
-    # BD-rate against the reference progressive anchor over the overlapping
-    # range; an untrained model's range may not overlap it
-    try:
-        result["bd_rate_vs_fixed_pret"] = bd_rate(
-            PROGRESSIVE_ANCHOR_BPP, PROGRESSIVE_ANCHOR_PSNR, res["bpp"][1:], res["psnr"][1:]
-        )
-    except (ValueError, np.linalg.LinAlgError) as e:
-        result["bd_rate_vs_fixed_pret"] = f"n/a ({e})"
+    result["bd_rate_vs_fixed_pret"] = bd_rate_vs_fixed_pret(res["bpp"][1:], res["psnr"][1:])
 
     text = json.dumps(result, indent=2)
     print(text)

@@ -57,8 +57,13 @@ def _exchange_halo_w(x: torch.Tensor, halo: int, mesh, axis: str):
     tile is laid out [x | right halo | 0], the last [0 | left halo | x], an
     interior one [left halo | x | right halo]; the valid region starts at
     column 0, 2 halo and halo.  (A [0 | x | halo] first tile has the same
-    shape and the wrong attention masks.)"""
+    shape and the wrong attention masks.)  A tile that holds both edges,
+    the one tile of a one-rank axis, is x itself: padded on either side, it
+    would end or start away from an edge.  (JAX lays it out [x | 0 | 0],
+    which is not exact at the right edge.)"""
     n, i = mesh[axis].size(), mesh.get_local_rank(axis)
+    if n == 1:
+        return x, 0
     sends, recvs = {}, {}
     if i > 0:  # my left strip is the left neighbour's right halo
         sends[i - 1] = x[:, :, :halo]
@@ -91,7 +96,7 @@ def tiled_apply_transform(fn, x: torch.Tensor, mesh, *, halo: int = HALO, stride
     tile_w = w // n
     # halo a multiple of 64: the Swin window grids of the padded tile align
     # with the global window grids at every scale
-    if halo % 64 or halo > tile_w:
+    if halo % 64 or (n > 1 and halo > tile_w):
         raise ValueError(f"halo {halo} must be <= the tile width {tile_w} and a multiple of 64")
     local = _tile(x, mesh, axis)
     padded, valid_start = _exchange_halo_w(local, halo, mesh, axis)
@@ -132,7 +137,7 @@ def tiled_synthesize(model, y_hat: torch.Tensor, mesh, *, decoder_index: int = 1
     check_axis(mesh, axis)
     n = mesh[axis].size()
     tile_w = y_hat.shape[2] // n
-    if halo_latent > tile_w:
+    if n > 1 and halo_latent > tile_w:
         raise ValueError(f"halo_latent {halo_latent} > the tile width {tile_w}")
     net = model._synth_net(decoder_index)
     local = _tile(y_hat, mesh, axis)

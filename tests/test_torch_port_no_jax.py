@@ -38,7 +38,9 @@ def test_port_modules_load_no_jax():
                  "ops.noise", "coder.rans_cuda", "layers.importance", "layers.postnets",
                  "training.mask_trainer", "cli.rd_sweep", "utils.profiling", "utils.flops",
                  "data.openimages", "parallel.distributed", "parallel.mesh",
-                 "parallel.sharded_coder", "parallel.tiling", "parallel.sharding"):
+                 "parallel.sharded_coder", "parallel.tiling", "parallel.sharding",
+                 "tools.bench_coder", "tools.profile_codec", "tools.bench_2k", "tools.rd_ladder",
+                 "tools.rem_demo", "tools.rem_flagship", "tools.bd_trajectory"):
         assert f"{PACKAGE}.{must}" in imported, must
     leaked = [m for m in result["loaded"]
               if m.split(".")[0] in BANNED or m == "progressivecodec_tpu"
