@@ -136,6 +136,12 @@ printing a result:
      init, frozen base unchanged, banks moved), `rem_demo` (20 base and 20
      bank steps) and `bd_trajectory` on phase 7's metrics.jsonl; the
      launches of each tool, zeroed before it and read after it.
+ 12. the bench, `python -m progressivecodec_tpu_torch.bench`, in a process
+     of its own (the flagship at 768x512, seeded weights; each of the
+     (quality, batch) pairs (10, 8), (10, 1) and (5, 8) in a fresh probe
+     process): exit 0, 0 < mfu < 1, every chain's stream_ok, the decoded
+     y_hat exact, and per chain one encode and 12 decode launches, counted
+     in the probe; its last line and each probe's record are logged.
 `python3 chip_smoke.py --ab [--lanes K,...] OTHER_CHECKOUT...` runs only
 `scan_split`, on other checkouts of the repo and on this one, in separate
 processes ordered others, this, this, others reversed (`ab_split`): at the
@@ -147,7 +153,8 @@ The last line is {"ok": true, "device": {...}}; the line before it is the
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
 (phase 8's map-ranked round trip) and `rd_sweep_launches`; the first three
 entries carry `sharded_launches`, the launches phase 9's ranks made, and
-`tools_launches`, phase 11's per tool.  The
+`tools_launches`, phase 11's per tool; the first two `bench_launches_per_chain`,
+phase 12's per chain of the (10, 8) probe.  The
 spanning decode's two instances follow, `rans_decode_scan_cluster` (timed
 at K=2048, its launches from the K=2048 round trip) and
 `rans_decode_scan_grid` (K=16384).
@@ -2123,6 +2130,56 @@ def check_tools(dev, smi, run_dir):
     return launches
 
 
+# phase 12
+# ---------------------------------------------------------------------------
+
+BENCH_TIMEOUT_S = 900
+
+
+def check_bench(smi, args=()):
+    """Phase 12: the port's bench, `python -m progressivecodec_tpu_torch.bench`,
+    in a process of its own at full size (the flagship, 768x512); it runs
+    each (quality, batch) of (10, 8), (10, 1) and (5, 8) in a fresh probe
+    process.  Requires exit 0, 0 < mfu < 1 under the bench's own gate, three
+    distinct probe processes, and in each probe every chain's stream_ok,
+    the decoded y_hat exact (also through serialize / deserialize) and one
+    encode and 1 + ns0 + 1 decode launches per chain, counted by the
+    wrappers inside the probe.  Returns the bench's last line."""
+    import os
+    import tempfile
+
+    from progressivecodec_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "progressivecodec_tpu_torch.bench", "--out-dir", tmp,
+                              *args], capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        require(out.returncode == 0,
+                f"bench exited {out.returncode}:\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+        last = out.stdout.strip().splitlines()[-1]
+        rec = json.loads(last)
+        for name, r in rec["probes"].items():
+            with open(os.path.join(tmp, f"bench_probe_{name}.json")) as f:
+                require(json.load(f) == r, f"bench probe {name}: its record file differs from the last line")
+    log(f"  bench: {time.perf_counter() - t0:.1f} s")
+    want = {"encode": 1, "decode": 1 + cfg.ns0 + 1, "grouped_decode": 0}
+    pids = set()
+    for name, r in rec["probes"].items():
+        log(f"  bench probe {name}: {json.dumps(r)}")
+        require(r["stream_ok_all"] and r["y_hat_exact"] and r["x_hat_finite"], f"bench probe {name}: {r}")
+        require(r["launches_per_chain"] == want,
+                f"bench probe {name}: launches per chain {r['launches_per_chain']}, want {want}")
+        pids.add(r["pid"])
+    require(len(pids) == 3 and os.getpid() not in pids, f"bench probes' processes {pids}")
+    require(rec["metric"] == "kodak_enc_dec_images_per_s_per_chip_q10" and rec["value"] > 0,
+            f"bench: {last}")
+    require(isinstance(rec["mfu"], float) and 0 < rec["mfu"] < 1, f"bench: mfu {rec['mfu']}")
+    require(rec["nvidia_smi"] == smi, f"bench: nvidia_smi {rec['nvidia_smi']!r}, want {smi!r}")
+    log(f"  bench last line: {last}")
+    return rec
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -2298,6 +2355,13 @@ def main() -> int:
     log(f"  phase 11 launches per tool (encode, decode, grouped decode): {tool_launches}")
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 12: the bench, one fresh process per (quality, batch)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = check_bench(smi)
+    bench_launches = bench["probes"]["q10_b8"]["launches_per_chain"]
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
@@ -2305,14 +2369,14 @@ def main() -> int:
              launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
              cust_map_launches=map_launches[0], rd_sweep_launches=rd_launches[0],
              sharded_launches=sharded[0], tools_launches={k: v[0] for k, v in tool_launches.items()},
-             **results["rans_encode_scan"]),
+             bench_launches_per_chain=bench_launches["encode"], **results["rans_encode_scan"]),
         dict(name="rans_decode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
              cust_map_launches=map_launches[1], rd_sweep_launches=rd_launches[1],
              sharded_launches=sharded[1], tools_launches={k: v[1] for k, v in tool_launches.items()},
-             **results["rans_decode_scan"]),
+             bench_launches_per_chain=bench_launches["decode"], **results["rans_decode_scan"]),
         dict(name="rans_decode_scan_grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
