@@ -1,0 +1,7 @@
+"""The encode scan kernel's share of its roofline, in % (kernels)."""
+
+from benchmark.metrics import _scan as _mod
+
+
+def read(run):
+    return _mod.roofline(run, "encode")
