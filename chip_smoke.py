@@ -82,8 +82,8 @@ printing a result:
      at patch 256; `cli.rd_sweep.main(["--synthetic-kodak", "--image", "0",
      "--grid", "coarse", "--device", "cuda", ...])` in this process (12
      qualities, bpp non-decreasing, 12 encode and 143 decode launches);
-     `PhaseTimer` spans around each; a `device_trace` of one q=10 round
-     trip that must name both rANS kernels; `count_flops` of
+     a recorded span around each, ending in a sync; a `device_trace` of
+     one q=10 round trip that must name both rANS kernels; `count_flops` of
      `forward_single_quality` at q=10 and the MFU of its CUDA-event-timed
      run against the card's float32 peak, which must lie in (0, 1);
   9. parallel/ (`parallel/` of the port, on torch.distributed): two ranks
@@ -162,6 +162,7 @@ at K=2048, its launches from the K=2048 round trip) and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -769,22 +770,29 @@ def synthetic_image(batch: int, seed: int, h: int = H, w: int = W):
     return np.stack(out).astype(np.float32)
 
 
-def zero_launches():
-    from progressivecodec_tpu_torch.coder import rans_cuda
+# the port's counter totals when `zero_launches` last ran
+_launch_base: dict = {}
 
-    for scan in (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan,
-                 rans_cuda.rans_decode_scan_grouped):
-        scan.launches = 0
-    for route in rans_cuda.SPAN_LAUNCHES:
-        rans_cuda.SPAN_LAUNCHES[route] = 0
+
+def zero_launches():
+    from progressivecodec_tpu_torch.utils import profiling
+
+    _launch_base.clear()
+    _launch_base.update(profiling.totals())
+
+
+def launches_since(name: str) -> int:
+    """`launch:<name>` (a kernel wrapper or a spanning route) counted since
+    `zero_launches`."""
+    from progressivecodec_tpu_torch.utils import profiling
+
+    return profiling.total(f"launch:{name}") - _launch_base.get(f"launch:{name}", 0)
 
 
 def read_launches():
     """(encode, decode, grouped decode) launches since `zero_launches`."""
-    from progressivecodec_tpu_torch.coder import rans_cuda
-
-    return (rans_cuda.rans_encode_scan.launches, rans_cuda.rans_decode_scan.launches,
-            rans_cuda.rans_decode_scan_grouped.launches)
+    return tuple(launches_since(n) for n in ("rans_encode_scan", "rans_decode_scan",
+                                            "rans_decode_scan_grouped"))
 
 
 def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None):
@@ -1273,7 +1281,7 @@ def snap_differences(model_a, xa, model_b, xb, table, q_eps=1e-6) -> int:
 def check_importance(dev, x1, smi):
     """Phase 8: the importance map, the MaskEstractor and its trainer, a
     round trip ranked by the predicted map, ImportanceMapDataset,
-    `cli.rd_sweep`, and the profiling tools: PhaseTimer spans around each,
+    `cli.rd_sweep`, and the profiling tools: a recorded span around each,
     a torch.profiler trace of one round trip, the forward's FLOPs and MFU.
     Returns the launches of the map-ranked round trip and of rd_sweep."""
     import os
@@ -1291,15 +1299,22 @@ def check_importance(dev, x1, smi):
         predict_cust_map,
     )
     from progressivecodec_tpu_torch.utils.flops import chip_peak_flops, flops_by_kind, mfu
-    from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, PhaseTimer, device_trace
+    from progressivecodec_tpu_torch.utils import profiling
+    from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, device_trace
 
     cfg = ModelConfig()
     table = cfg.scale_table.values()
-    timer = PhaseTimer()
+    t_ns = time.time_ns()
+
+    @contextlib.contextmanager
+    def phase(name):
+        with profiling.recording(), profiling.span(f"smoke:{name}"):
+            yield
+            torch.cuda.synchronize()
     model = seeded_model(cfg, dev)
     b, h, w = 1, H // 16, W // 16
 
-    with timer.phase("importance_map 768x512", sync=x1):
+    with phase("importance_map 768x512"):
         imap = importance_map(model, x1, NoiseSource.seeded(SEED + 8), table)
     require(tuple(imap.shape) == (b, h, w, cfg.division_channel), f"importance map {tuple(imap.shape)}")
     require(bool(torch.isfinite(imap).all()) and bool((imap >= 0).all()) and float(imap.max()) > 0,
@@ -1308,7 +1323,7 @@ def check_importance(dev, x1, smi):
     require(all(p.grad is None for p in model.parameters()),
             "importance_map gave a model parameter a gradient")
 
-    with timer.phase("importance_map card vs CPU 256x256"):
+    with phase("importance_map card vs CPU 256x256"):
         cpu_model = get_model(cfg, device="cpu")
         cpu_model.load_state_dict(model.state_dict(), strict=True)
         x256 = x1[:, :256, :256].contiguous()
@@ -1322,7 +1337,7 @@ def check_importance(dev, x1, smi):
         f"sigma differ at {n_snap} of {2 * 16 * 16 * cfg.division_channel} elements")
     require(rel <= 1e-3, f"importance map card vs CPU {rel} > 1e-3")
 
-    with timer.phase("MaskEstractor 10 steps", sync=x1):
+    with phase("MaskEstractor 10 steps"):
         feats = mask_features(model, x1)
         target = importance_target(model, x1, NoiseSource.seeded(SEED + 10), table)
         est = init_mask_estractor(torch.Generator().manual_seed(SEED + 11), model)
@@ -1341,7 +1356,7 @@ def check_importance(dev, x1, smi):
         f"{start.elapsed_time(end) / 10:.2f} ms per step, loss {losses[0]:.6g} -> {losses[-1]:.6g}")
     require(np.isfinite(losses).all() and losses[-1] < losses[0], f"mask losses {losses}")
 
-    with timer.phase("cust_map round trip q=5", sync=x1):
+    with phase("cust_map round trip q=5"):
         cust_map = predict_cust_map(est, model, x1)
         codec = GranularCodec(model, lanes=LANES, device=dev)
         roundtrip(codec, x1, 5, "cust_map warm-up q=5 b=1", cust_map=cust_map)
@@ -1355,7 +1370,7 @@ def check_importance(dev, x1, smi):
     require(moved > 0, "the predicted cust_map kept the same elements as sigma ranking")
     map_launches = (got["enc"], got["dec"], got["grouped"])
 
-    with timer.phase("ImportanceMapDataset 2 items"):
+    with phase("ImportanceMapDataset 2 items"):
         pairs = ImportanceMapDataset(SyntheticKodak(n=2), model, table, patch_size=256)
         for i in range(len(pairs)):
             patch, m = pairs[i]
@@ -1366,7 +1381,7 @@ def check_importance(dev, x1, smi):
         out = os.path.join(tmp, "rd.json")
         zero_launches()
         t0 = time.perf_counter()
-        with timer.phase("cli.rd_sweep coarse, 1 image"):
+        with phase("cli.rd_sweep coarse, 1 image"):
             res = rd_sweep.main(["--synthetic-kodak", "--image", "0", "--grid", "coarse",
                                  "--device", "cuda", "--out", out])
         rd_s = time.perf_counter() - t0
@@ -1382,7 +1397,7 @@ def check_importance(dev, x1, smi):
     require(all(a <= c for a, c in zip(res["bpp"], res["bpp"][1:])), "rd_sweep: bpp decreases with q")
 
     with tempfile.TemporaryDirectory() as tmp:
-        with timer.phase("device_trace q=10 round trip"):
+        with phase("device_trace q=10 round trip"):
             with device_trace(tmp) as prof:
                 t0 = time.perf_counter()
                 codec.decompress(codec.deserialize(codec.serialize(codec.compress(x1, quality=10))))
@@ -1412,8 +1427,9 @@ def check_importance(dev, x1, smi):
         f"{kinds['matmul'] / 1e9:.2f}), {fwd_ms:.2f} ms (CUDA events), MFU {util:.4f} of {note} "
         f"on {smi}")
     require(0 < util < 1, f"MFU {util} outside (0, 1)")
-    for name, v in timer.summary().items():
-        log(f"  span {name}: {v['total_s']:.2f} s")
+    for sp in profiling.spans():
+        if sp.name.startswith("smoke:") and sp.t0_ns >= t_ns:
+            log(f"  span {sp.name[len('smoke:'):]}: {(sp.t1_ns - sp.t0_ns) * 1e-9:.2f} s")
     return map_launches, rd_launches
 
 
@@ -1466,8 +1482,6 @@ def _p9_events(dev):
     orig = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather)
 
     def evented(fn, key):
-        # the kernel wrapper counts its launches on the module's name, which
-        # is this function's while it stands in: `restore` hands them back
         def run(*a, **kw):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -1475,7 +1489,6 @@ def _p9_events(dev):
             e1.record()
             spans[key].append((e0, e1))
             return out
-        run.launches = fn.launches
         return run
 
     def gather(*a, **kw):
@@ -1491,8 +1504,6 @@ def _p9_events(dev):
     sharded_coder.all_gather = gather
 
     def restore():
-        orig[0].launches = rans_cuda.rans_encode_scan.launches
-        orig[1].launches = rans_cuda.rans_decode_scan_grouped.launches
         rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather = orig
 
     return spans, restore
@@ -1972,7 +1983,7 @@ def check_lane_counts(dev, smi):
     launches = {}
     for k, x, q, route in ((2048, x8, 10, "cluster"), (48, x1, 5, None), (16384, x8, 10, "grid")):
         got = roundtrip(GranularCodec(model, lanes=k, device=dev), x, q, f"K={k} q={q} b={x.shape[0]}")
-        span = dict(rans_cuda.SPAN_LAUNCHES)
+        span = {r: launches_since(r) for r in ("cluster", "grid")}
         want = {r: got["dec"] if r == route else 0 for r in span}
         require(span == want, f"K={k}: spanning launches {span}, want {want}")
         launches[k] = got["dec"]

@@ -85,13 +85,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from progressivecodec_tpu_torch.coder import rans_cuda
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
 from progressivecodec_tpu_torch.tools.bench_coder import card_line
 from progressivecodec_tpu_torch.tools.profile_codec import (
     _sync, model_config, round_trip, seeded_image, seeded_model,
 )
+from progressivecodec_tpu_torch.utils import profiling
 from progressivecodec_tpu_torch.utils.flops import chip_peak_flops, flops_by_kind
 
 METRIC = "kodak_enc_dec_images_per_s_per_chip_q10"
@@ -193,9 +193,9 @@ def probe(args) -> dict:
     _sync(dev)
     pipelined_s = time.perf_counter() - t0
 
-    scans = {"encode": rans_cuda.rans_encode_scan, "decode": rans_cuda.rans_decode_scan,
-             "grouped_decode": rans_cuda.rans_decode_scan_grouped}
-    before = {k: f.launches for k, f in scans.items()}
+    scans = {"encode": "launch:rans_encode_scan", "decode": "launch:rans_decode_scan",
+             "grouped_decode": "launch:rans_decode_scan_grouped"}
+    before = {k: profiling.total(c) for k, c in scans.items()}
     per_chain_s = []
     for _ in range(N_FORCED):
         t0 = time.perf_counter()
@@ -203,7 +203,7 @@ def probe(args) -> dict:
         _sync(dev)
         per_chain_s.append(time.perf_counter() - t0)
         _check_stream(out, label)
-    launches = {k: (f.launches - before[k]) / N_FORCED for k, f in scans.items()}
+    launches = {k: (profiling.total(c) - before[k]) / N_FORCED for k, c in scans.items()}
 
     if not bool(torch.isfinite(out["x_hat"]).all()):
         raise RuntimeError(f"{label}: x_hat is not finite")

@@ -9,15 +9,15 @@
                             per group, in clusters of `decode_cluster(G)`)
 
 A stream or group of more than 1,024 lanes spans C CTAs (`decode_span`):
-a thread-block cluster for C <= 8, a cooperative grid above, both counted
-in `SPAN_LAUNCHES` besides the wrapper's own count.  A single stream whose
-K is not a whole number of warps up to 1,024 runs as one group of the
-grouped instance.
+a thread-block cluster for C <= 8, a cooperative grid above, counted as
+`launch:cluster` and `launch:grid` besides the wrapper's own count.  A
+single stream whose K is not a whole number of warps up to 1,024 runs as
+one group of the grouped instance.
 
 Each wrapper takes its route from the device of its tensors: a CPU tensor
 goes to the plain twin, a CUDA tensor launches the kernel.  On CUDA there
 is no fallback: a failed build or launch raises.  Each wrapper counts its
-kernel launches in `<wrapper>.launches`.
+kernel launches as `launch:<wrapper>` (`utils/profiling.count`).
 
 Unsigned 32-bit quantities travel as int32 bit patterns, 16-bit words as
 int16 bit patterns and flags as uint8, because PyTorch implements almost
@@ -41,6 +41,7 @@ import torch
 
 from progressivecodec_tpu_torch import build
 from progressivecodec_tpu_torch.coder.tables import RANS_L
+from progressivecodec_tpu_torch.utils.profiling import count
 
 _U32 = 0xFFFFFFFF
 _VP = ctypes.c_void_p
@@ -148,11 +149,9 @@ def rans_encode_scan(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
             flags.data_ptr(), p, k, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"rans_encode_scan kernel launch failed: cudaError {rc}")
-    rans_encode_scan.launches += 1
+    count("launch:rans_encode_scan")
     return states, words, flags
 
-
-rans_encode_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +422,7 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
         raise ValueError(f"rans_decode_scan kernel needs the CompactCdf tables on {dev}")
     if k % 32 or k > MAX_CTA_LANES:
         out = _launch_groups(states, offset, stream[None], idx, kp, compact, rows, _smem_cap(dev, smem_cap))
-        rans_decode_scan.launches += 1
+        count("launch:rans_decode_scan")
         return out
     cap = _smem_cap(dev, smem_cap)
     rows = rows or (0, compact.meta.shape[0])
@@ -445,11 +444,9 @@ def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.T
             cums.data_ptr(), p, k, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"rans_decode_scan kernel launch failed: cudaError {rc}")
-    rans_decode_scan.launches += 1
+    count("launch:rans_decode_scan")
     return states_out, offset_out, cums
 
-
-rans_decode_scan.launches = 0
 
 
 def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, streams: torch.Tensor,
@@ -482,15 +479,9 @@ def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, stream
     if compact is None or compact.device != dev:
         raise ValueError(f"rans_decode_scan_grouped kernel needs the CompactCdf tables on {dev}")
     out = _launch_groups(states, offsets, streams, idx, kp, compact, rows, _smem_cap(dev, smem_cap))
-    rans_decode_scan_grouped.launches += 1
+    count("launch:rans_decode_scan_grouped")
     return out
 
-
-rans_decode_scan_grouped.launches = 0
-
-# multi-CTA launches by route ("cluster", "grid"), counted besides the
-# calling wrapper's own count
-SPAN_LAUNCHES = {"cluster": 0, "grid": 0}
 
 
 def _launch_groups(states, offsets, streams, idx, kp, compact, rows, cap):
@@ -545,5 +536,5 @@ def _launch_groups(states, offsets, streams, idx, kp, compact, rows, cap):
     if rc != 0:
         raise RuntimeError(f"rans_decode kernel launch failed ({what}): cudaError {rc}")
     if ctas > 1:
-        SPAN_LAUNCHES[route] += 1
+        count(f"launch:{route}")
     return states_out, offsets_out, cums

@@ -30,6 +30,7 @@ import torch
 from progressivecodec_tpu_torch.coder import rans_cuda
 from progressivecodec_tpu_torch.coder.rans_cuda import to_i16, to_i32, u32
 from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, RANS_L, CoderTables
+from progressivecodec_tpu_torch.utils.profiling import span
 
 I32 = torch.int32
 
@@ -131,6 +132,7 @@ def _stage_grids(stages, t: DeviceTables, lanes: int):
     return tuple(torch.cat(a, dim=0) for a in (v_all, idx_all, kp_all, esc_all, sym_all))
 
 
+@span("coder:encode_prepare")
 def encode_prepare(stages, t: DeviceTables, lanes: int = DEFAULT_LANES):
     """Phase 1 (flat): grids + the (start, freq) pre-gather.
 
@@ -142,6 +144,7 @@ def encode_prepare(stages, t: DeviceTables, lanes: int = DEFAULT_LANES):
     return sf.flip(0).contiguous(), kp.flip(0).contiguous(), esc, sym
 
 
+@span("coder:encode_scan_rev")
 def encode_scan_rev(sf_rev, kp_rev, lanes: int):
     """Phase 2: the reverse-position encode scan (CUDA kernel on the card).
     Returns (states (K,) int32 bits, words_rev (P, K) int16, flags_rev (P, K) uint8).
@@ -158,6 +161,7 @@ def encode_scan_rev(sf_rev, kp_rev, lanes: int):
     return states[:lanes], words[:, :lanes].contiguous(), flags[:, :lanes].contiguous()
 
 
+@span("coder:encode_finalize")
 def encode_finalize(states, words_rev, flags_rev, esc_flags, sym, lanes: int):
     """Phase 3 (flat): payload compaction, escape segment, lane-state head.
     Returns (stream (2K + P*K,) int16, n_words (), esc (2*P*K,) int16, n_esc ())."""
@@ -192,6 +196,7 @@ def encode_stages(stages, t: DeviceTables, lanes: int = DEFAULT_LANES):
     return encode_finalize(states, words_rev, flags_rev, esc, sym, lanes)
 
 
+@span("coder:decoder_init")
 def decoder_init(stream: torch.Tensor, lanes: int = DEFAULT_LANES) -> DecoderState:
     head = stream[: 2 * lanes].to(torch.int64) & 0xFFFF
     states = to_i32(head[0::2] | (head[1::2] << 16))
@@ -203,6 +208,7 @@ def decoder_init(stream: torch.Tensor, lanes: int = DEFAULT_LANES) -> DecoderSta
     )
 
 
+@span("coder:decode_stage_scan")
 def decode_stage_scan(dec: DecoderState, stream, indexes_grid, keep_grid,
                       t: DeviceTables, lanes: int = DEFAULT_LANES, rows=None):
     """The decode state recursion for one stage (CUDA kernel on the card).
@@ -217,6 +223,7 @@ def decode_stage_scan(dec: DecoderState, stream, indexes_grid, keep_grid,
     )
 
 
+@span("coder:decode_stage_values")
 def decode_stage_values(esc_offset, cums, esc, indexes, keep, t: DeviceTables,
                         lanes: int = DEFAULT_LANES):
     """Recover decoded values from the scan's cums (flat phase).
@@ -267,6 +274,7 @@ def _to_groups(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x.reshape(p, groups, k // groups).transpose(0, 1).reshape(groups, -1)
 
 
+@span("coder:encode_stages_grouped")
 def encode_stages_grouped(stages, t: DeviceTables, lanes: int = DEFAULT_LANES, groups: int = 1):
     """All stages as G sub-streams.  Returns (streams (G, 2kt + P*kt) int16,
     n_words (G,), escs (G, 2*P*kt) int16, n_escs (G,)); the words of group g
@@ -299,6 +307,7 @@ def encode_stages_grouped(stages, t: DeviceTables, lanes: int = DEFAULT_LANES, g
     return streams, gf.sum(1) + 2 * kt, escs[:, : 2 * cap], ge.sum(1)
 
 
+@span("coder:grouped_decoder_init")
 def grouped_decoder_init(streams: torch.Tensor, lanes: int, groups: int) -> GroupedDecoderState:
     """streams (G, W) int16: each row a PCT1 sub-stream of kt = K/G lanes."""
     kt = lanes // groups
@@ -311,6 +320,7 @@ def grouped_decoder_init(streams: torch.Tensor, lanes: int, groups: int) -> Grou
     )
 
 
+@span("coder:decode_stage_grouped_scan")
 def decode_stage_grouped_scan(dec: GroupedDecoderState, streams, indexes_grid, keep_grid,
                               t: DeviceTables, lanes: int = DEFAULT_LANES, rows=None):
     """The decode state recursion of one stage for every group in one
@@ -322,6 +332,7 @@ def decode_stage_grouped_scan(dec: GroupedDecoderState, streams, indexes_grid, k
     )
 
 
+@span("coder:decode_stage_grouped_values")
 def decode_stage_grouped_values(esc_offsets, cums, escs, indexes, keep, t: DeviceTables,
                                 lanes: int, groups: int):
     """Decoded values in global symbol order from the grouped scan's cums;

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from progressivecodec_tpu_torch.ops.math import ste_round
+from progressivecodec_tpu_torch.utils.profiling import span
 
 F32 = torch.float32
 
@@ -38,8 +39,11 @@ def row_quantile(flat: torch.Tensor, q: float) -> torch.Tensor:
     lo_i = int(np.clip(low, 0, n - 1))
     hi_i = int(np.clip(high, 0, n - 1))
     w = lambda v: torch.tensor(v, dtype=F32, device=flat.device)  # noqa: E731
-    out = srt[:, lo_i] * w(low_w) + srt[:, hi_i] * w(high_w)
-    return torch.where(torch.isnan(flat).any(dim=1), w(np.nan), out)
+    # three copies to flat's device, each of which the host waits for on a card
+    with span("sync:quantile_weights"):
+        low_t, high_t, nan_t = w(low_w), w(high_w), w(np.nan)
+    out = srt[:, lo_i] * low_t + srt[:, hi_i] * high_t
+    return torch.where(torch.isnan(flat).any(dim=1), nan_t, out)
 
 
 def quantile_mask(values: torch.Tensor, keep_frac: float) -> torch.Tensor:
@@ -51,6 +55,7 @@ def quantile_mask(values: torch.Tensor, keep_frac: float) -> torch.Tensor:
     return (flat >= q[:, None]).reshape(values.shape).to(F32)
 
 
+@span("mask:rank")
 def channel_mask(scale: torch.Tensor, *, pr: float, mask_pol: str = "point-based-std",
                  slice_index: int = 0, dim_chunk: int = 32, division_channel: int = 320,
                  cust_map: torch.Tensor | None = None,
@@ -108,6 +113,7 @@ def channel_mask(scale: torch.Tensor, *, pr: float, mask_pol: str = "point-based
     raise NotImplementedError(f"mask policy {mask_pol!r}")
 
 
+@span("mask:rank")
 def stacked_channel_mask(scale_stack: torch.Tensor, *, pr: float,
                          mask_pol: str = "point-based-std", dim_chunk: int = 32,
                          division_channel: int = 320,

@@ -23,6 +23,7 @@ from progressivecodec_tpu_torch.coder.tables import (
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import build_bottleneck_tables
 from progressivecodec_tpu_torch.entropy.gaussian import build_gaussian_tables
+from progressivecodec_tpu_torch.utils.profiling import span
 
 # The JAX package writes b"PCT2".  Bump MAGIC on an incompatible header
 # change and FORMAT_VERSION on any change that could alter sigma bits.
@@ -88,6 +89,7 @@ class Codec:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         return self.model.forward_single_quality(x, float(quality), mask_pol)
 
+    @span("codec:serialize")
     def serialize(self, data: dict) -> bytes:
         """Container: magic | version u8 | quality f32 | batch u16 | z_h u16 |
         z_w u16 | lanes u16 | groups u8 | mask_pol len u8 + utf8 | per group
@@ -107,10 +109,15 @@ class Codec:
             segments = [(data["stream"], data.get("esc", np.zeros(0, np.uint16)))]
         body = b""
         for words, esc in segments:
-            words, esc = words_np(words).astype("<u2"), words_np(esc).astype("<u2")
-            body += struct.pack("<II", len(words), len(esc)) + words.tobytes() + esc.tobytes()
-        return head + mp + body
+            with span("sync:words_to_host"):
+                words, esc = words_np(words).astype("<u2"), words_np(esc).astype("<u2")
+            with span("glue:pack"):
+                body += struct.pack("<II", len(words), len(esc)) + words.tobytes() + esc.tobytes()
+        with span("glue:pack"):
+            return head + mp + body
 
+    @span("codec:deserialize")
+    @span("glue:parse")
     def deserialize(self, blob: bytes) -> dict:
         if blob[:4] != MAGIC:
             raise ValueError(

@@ -24,6 +24,12 @@ each stage is one launch of the grouped decode kernel.  With a
 `coder_mesh` (parallel/sharded_coder.py) each rank of the mesh axis makes
 those launches for its own lane group: an encode launch over its kt lanes,
 and per stage a grouped decode launch of one CTA.
+
+Each public call is a `codec:*` span (`utils/profiling.py`); inside it the
+codec's own steps between the model's fragments are `glue:*` spans and the
+points where the host waits on the card `sync:*` spans.  `compress` counts
+the container's payload words (`words:payload`, the lane-state head
+included) and escape words (`words:escape`).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from progressivecodec_tpu_torch.parallel.sharded_coder import (
     sharded_decode_stage,
     sharded_encode_stages,
 )
+from progressivecodec_tpu_torch.utils.profiling import count, span
 
 F32 = torch.float32
 I32 = torch.int32
@@ -134,6 +141,7 @@ class GranularCodec(Codec):
 
     # ---------- shared pipelines ----------
 
+    @span("glue:base_loop")
     def _base_loop(self, lm, ls, vals_fn):
         """Run the ChARM base slices; vals_fn(i, mu, idx) supplies flat integer
         values (encoder: quantized; decoder: entropy-decoded)."""
@@ -161,6 +169,7 @@ class GranularCodec(Codec):
                 y_hat_base.append(m.codec_base_recon(i, ms, mu_list[i], vals))
         return y_hat_base, mu_list, std_list
 
+    @span("glue:prog_loop")
     def _prog_loop(self, quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
                    checkpoint_rep, vals_fn):
         """Run the unrolled enhancement slices; vals_fn(i, mu, mask, keep, idx)
@@ -182,6 +191,7 @@ class GranularCodec(Codec):
 
     # ---------- public API ----------
 
+    @span("codec:compress")
     @torch.no_grad()
     def compress(self, x, quality: float = 0.0, mask_pol: str | None = None,
                  simulate: bool = False, cust_map=None, checkpoint_rep=None) -> dict:
@@ -197,6 +207,7 @@ class GranularCodec(Codec):
             cust_map=cust_map, checkpoint_rep=checkpoint_rep,
         )
 
+    @span("codec:compress_from_latent")
     @torch.no_grad()
     def compress_from_latent(self, y, x_shape, quality: float = 0.0,
                              mask_pol: str | None = None, simulate: bool = False,
@@ -213,15 +224,17 @@ class GranularCodec(Codec):
         row0 = self.gauss_row0
 
         z = m.codec_hyper_enc(y)
-        med = self._medians()
-        z_sym = torch.round(z - med).to(I32)
-        z_idx = torch.arange(z.shape[-1], dtype=I32, device=self.device).expand(z.shape)
-        z_hat = z_sym.to(F32) + med
+        with span("glue:z_round"):
+            med = self._medians()
+            z_sym = torch.round(z - med).to(I32)
+            z_idx = torch.arange(z.shape[-1], dtype=I32, device=self.device).expand(z.shape)
+            z_hat = z_sym.to(F32) + med
         lm, ls = m.codec_hyper_dec(z_hat)
 
         dc_slice = y.shape[-1] // self._n_split
         stages = [(z_sym.reshape(-1), z_idx.reshape(-1), self._ones(z_sym.numel()))]
 
+        @span("glue:symbols")
         def enc_vals(i, mu, idx):
             ys = y[..., i * dc_slice : i * dc_slice + mu.shape[-1]]
             sym = torch.round(ys - mu).to(I32).reshape(-1)
@@ -236,14 +249,15 @@ class GranularCodec(Codec):
                 mu_st, _, mask, keep, idx, ms, base_stack = m.codec_prog_stacked(
                     quality, mask_pol, lm, ls, tuple(y_hat_base), self._scale_table, cust_map,
                 )
-                b, h, w, _ = y.shape
-                dc = mu_st.shape[-1]
-                y5 = y.reshape(b, h, w, -1, dc)
-                prog = y5[..., cfg.ns0 : cfg.ns0 + cfg.num_prog_slices, :]
-                if cfg.delta_encode:
-                    prog = prog - y5[..., : cfg.num_prog_slices, :]
-                sym = torch.round((prog.movedim(3, 0) - mu_st) * mask).to(I32)
-                stages.append((sym.reshape(-1), (idx + row0).reshape(-1), keep.reshape(-1)))
+                with span("glue:symbols"):
+                    b, h, w, _ = y.shape
+                    dc = mu_st.shape[-1]
+                    y5 = y.reshape(b, h, w, -1, dc)
+                    prog = y5[..., cfg.ns0 : cfg.ns0 + cfg.num_prog_slices, :]
+                    if cfg.delta_encode:
+                        prog = prog - y5[..., : cfg.num_prog_slices, :]
+                    sym = torch.round((prog.movedim(3, 0) - mu_st) * mask).to(I32)
+                    stages.append((sym.reshape(-1), (idx + row0).reshape(-1), keep.reshape(-1)))
                 if simulate:
                     y_hat_prog = unstack_channels(
                         m.codec_prog_recon_stacked(ms, mu_st, sym, keep, base_stack)
@@ -251,6 +265,7 @@ class GranularCodec(Codec):
             else:
                 base0 = cfg.ns0 * cfg.dim_chunk
 
+                @span("glue:symbols")
                 def prog_vals(i, mu, mask, keep, idx):
                     # the enhancement slice, less its unquantised base slice
                     # under delta_encode
@@ -264,7 +279,8 @@ class GranularCodec(Codec):
 
                 prog_slices = self._prog_loop(quality, mask_pol, lm, ls, y_hat_base, mu_list,
                                               std_list, cust_map, checkpoint_rep, prog_vals)
-                y_hat_prog = torch.cat(prog_slices, dim=-1)
+                with span("glue:cat"):
+                    y_hat_prog = torch.cat(prog_slices, dim=-1)
 
         hz, wz = z.shape[1], z.shape[2]
         lanes = self._lanes_for_stream(int(x_shape[0]), (hz, wz), quality)
@@ -285,31 +301,41 @@ class GranularCodec(Codec):
                 streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(
                     stages, t, lanes, self.groups
                 )
-            nw, ne = n_words.tolist(), n_escs.tolist()
-            result.update({
-                "groups": self.groups,
-                "streams": [streams[g, : nw[g]] for g in range(self.groups)],
-                "escs": [escs[g, : 2 * ne[g]] for g in range(self.groups)],
-                "num_bytes": 2 * (sum(nw) + 2 * sum(ne)),
-            })
+            with span("sync:n_words"):
+                nw, ne = n_words.tolist(), n_escs.tolist()
+            count("words:payload", sum(nw))
+            count("words:escape", 2 * sum(ne))
+            with span("glue:container"):
+                result.update({
+                    "groups": self.groups,
+                    "streams": [streams[g, : nw[g]] for g in range(self.groups)],
+                    "escs": [escs[g, : 2 * ne[g]] for g in range(self.groups)],
+                    "num_bytes": 2 * (sum(nw) + 2 * sum(ne)),
+                })
         else:
             stream, n_words, esc, n_esc = rans_device.encode_stages(stages, t, lanes)
-            n_words, n_esc = int(n_words), int(n_esc)
-            result.update({
-                "stream": stream[:n_words],
-                "esc": esc[: 2 * n_esc],
-                "num_bytes": 2 * (n_words + 2 * n_esc),
-            })
+            with span("sync:n_words"):
+                n_words, n_esc = int(n_words), int(n_esc)
+            count("words:payload", n_words)
+            count("words:escape", 2 * n_esc)
+            with span("glue:container"):
+                result.update({
+                    "stream": stream[:n_words],
+                    "esc": esc[: 2 * n_esc],
+                    "num_bytes": 2 * (n_words + 2 * n_esc),
+                })
         if simulate:
             if y_hat_prog is not None:
                 result["x_hat"] = m.codec_synth(1, y_hat_prog)
                 result["y_hat"] = y_hat_prog
             else:
-                y_hat_b = torch.cat(y_hat_base, dim=-1)
+                with span("glue:cat"):
+                    y_hat_b = torch.cat(y_hat_base, dim=-1)
                 result["x_hat"] = m.codec_synth(0, y_hat_b)
                 result["y_hat"] = y_hat_b
         return result
 
+    @span("codec:decompress")
     @torch.no_grad()
     def decompress(self, data: dict, cust_map=None, checkpoint_rep=None) -> dict:
         out = self.decompress_to_latent(data, cust_map=cust_map, checkpoint_rep=checkpoint_rep)
@@ -332,11 +358,12 @@ class GranularCodec(Codec):
         empty = np.zeros(0, np.uint16)
         g = self.groups
         if g == 1:
-            stream = self._words(data["stream"])
+            with span("sync:words_to_device"):
+                stream = self._words(data["stream"])
+                esc = torch.cat([self._words(data.get("esc", empty)),
+                                 torch.zeros(2, dtype=torch.int16, device=self.device)])
             if stream.numel() > cap:
                 raise ValueError("stream longer than the container's capacity")
-            esc = torch.cat([self._words(data.get("esc", empty)),
-                             torch.zeros(2, dtype=torch.int16, device=self.device)])
             dec = [rans_device.decoder_init(stream, lanes)]
         else:
             # group g's capacity: its share of the payload and its own head
@@ -349,7 +376,8 @@ class GranularCodec(Codec):
             if len(data["streams"]) != g or len(data["escs"]) != g:
                 raise ValueError(f"container holds {len(data['streams'])} streams for groups={g}")
             for i, (w, e) in enumerate(zip(data["streams"], data["escs"])):
-                w, e = self._words(w), self._words(e)
+                with span("sync:words_to_device"):
+                    w, e = self._words(w), self._words(e)
                 if w.numel() > cap_g or e.numel() > 2 * cap_g:
                     raise ValueError(f"group {i}'s stream is longer than its capacity")
                 streams[i, : w.numel()] = w
@@ -359,10 +387,11 @@ class GranularCodec(Codec):
         def dec_stage(indexes, keep, row_off):
             # z codes on the bottleneck rows [0, row0), y on the Gaussian rows
             rows = (0, row0) if row_off == 0 else (row0, n_rows)
-            idx_flat = (indexes + row_off).reshape(-1).to(I32)
-            kp_flat = keep.reshape(-1)
-            ig = _pad_to_grid(idx_flat, lanes)
-            kg = _pad_to_grid(kp_flat.to(torch.uint8), lanes)
+            with span("glue:grids"):
+                idx_flat = (indexes + row_off).reshape(-1).to(I32)
+                kp_flat = keep.reshape(-1)
+                ig = _pad_to_grid(idx_flat, lanes)
+                kg = _pad_to_grid(kp_flat.to(torch.uint8), lanes)
             d = dec[0]
             if g == 1:
                 states, offset, cums = rans_device.decode_stage_scan(d, stream, ig, kg, t, lanes, rows)
@@ -382,6 +411,7 @@ class GranularCodec(Codec):
 
         return dec_stage, dec
 
+    @span("codec:decompress_to_latent")
     @torch.no_grad()
     def decompress_to_latent(self, data: dict, cust_map=None, checkpoint_rep=None) -> dict:
         """Entropy decode + slice reconstruction, stopping before g_s."""
@@ -404,16 +434,19 @@ class GranularCodec(Codec):
         )
 
         n = cfg.N
-        z_idx = torch.arange(n, dtype=I32, device=self.device).expand(batch, hz, wz, n)
+        with span("glue:grids"):
+            z_idx = torch.arange(n, dtype=I32, device=self.device).expand(batch, hz, wz, n)
         z_vals = dec_stage(z_idx, self._ones(z_idx.numel()), 0)
-        z_hat = z_vals.reshape(batch, hz, wz, n).to(F32) + self._medians()
+        with span("glue:z_round"):
+            z_hat = z_vals.reshape(batch, hz, wz, n).to(F32) + self._medians()
         lm, ls = m.codec_hyper_dec(z_hat)
 
         y_hat_base, mu_list, std_list = self._base_loop(
             lm, ls, lambda i, mu, idx: dec_stage(idx, self._ones(idx.numel()), row0)
         )
         if quality == 0 or not self._progressive:
-            y_hat = torch.cat(y_hat_base, dim=-1)
+            with span("glue:cat"):
+                y_hat = torch.cat(y_hat_base, dim=-1)
         elif self._stacked():
             mu_st, _, _, keep, idx, ms, base_stack = m.codec_prog_stacked(
                 quality, mask_pol, lm, ls, tuple(y_hat_base), self._scale_table, cust_map
@@ -421,11 +454,15 @@ class GranularCodec(Codec):
             vals = dec_stage(idx, keep, row0)
             y_hat = unstack_channels(m.codec_prog_recon_stacked(ms, mu_st, vals, keep, base_stack))
         else:
-            y_hat = torch.cat(self._prog_loop(
+            prog_slices = self._prog_loop(
                 quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map, checkpoint_rep,
                 lambda i, mu, mask, keep, idx: dec_stage(idx, keep, row0),
-            ), dim=-1)
-        return {"y_hat": y_hat, "stream_ok": bool(rans_device.stream_ok(dec[0]))}
+            )
+            with span("glue:cat"):
+                y_hat = torch.cat(prog_slices, dim=-1)
+        with span("sync:stream_ok"):
+            ok = bool(rans_device.stream_ok(dec[0]))
+        return {"y_hat": y_hat, "stream_ok": ok}
 
 
 def make_codec(model, lanes: int = DEFAULT_LANES, device=None, groups: int = 1) -> GranularCodec:

@@ -57,6 +57,7 @@ from progressivecodec_tpu_torch.models.transforms import (
     nhwc,
 )
 from progressivecodec_tpu_torch.ops.math import ste_round
+from progressivecodec_tpu_torch.utils.profiling import span
 
 
 def uses_stacked_prog(cfg: ModelConfig) -> bool:
@@ -166,6 +167,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
     # pieces (NCHW inside)
     # ------------------------------------------------------------------
 
+    @span("frag:analyze")
     def analyze(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 3) -> y (B, H/16, W/16, C), base | enhancement channels."""
         x = nchw(x)
@@ -419,6 +421,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         )
         return mu, scale, mask, ms, base_stack
 
+    @span("frag:codec_prog_stacked")
     def codec_prog_stacked(self, quality: float, mask_pol, lm, ls, y_hat_base,
                            scale_table, cust_map=None):
         """-> (mu, scale, mask, keep, idx, mean_support, base_stack), each
@@ -430,6 +433,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         idx = build_indexes(scale, scale_table, 0.11)
         return mu, scale, mask, keep, idx, ms, base_stack
 
+    @span("frag:codec_prog_recon_stacked")
     def codec_prog_recon_stacked(self, ms, mu, vals, keep, base_stack):
         zero = torch.zeros((), dtype=torch.float32, device=mu.device)
         y0 = torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu
@@ -450,6 +454,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
             y0 = y0 + base_stack
         return y0
 
+    @span("frag:codec_prog_params")
     def codec_prog_params(self, i: int, quality: float, mask_pol, lm, ls, y_hat_base,
                           mu_total, std_total, prog_slices, mu_b_i, std_b_i, checkpoint_slice,
                           scale_table, cust_map_slice=None):
@@ -467,6 +472,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         idx = build_indexes(scale, scale_table, 0.11)
         return mu, scale, mut, mask, keep, idx, ms
 
+    @span("frag:codec_prog_recon")
     def codec_prog_recon(self, i: int, ms, mu, vals, keep, y_b_i):
         """Reconstruction of unrolled enhancement slice i, merged into its base."""
         zero = torch.zeros((), dtype=torch.float32, device=mu.device)
@@ -491,6 +497,7 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         """Synthesis `which` and its refinement, channel-last, not clipped."""
         return nhwc(self._apply_refine(self._synth_net(which)(nchw(y_hat)), which))
 
+    @span("frag:codec_synth")
     def codec_synth(self, which: int, y_hat):
         return torch.clamp(self._synthesize(which, y_hat), 0.0, 1.0)
 

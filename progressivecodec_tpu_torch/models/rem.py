@@ -37,6 +37,7 @@ from progressivecodec_tpu_torch.layers.blocks import Conv
 from progressivecodec_tpu_torch.layers.masking import apply_mask_noise, channel_mask
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
 from progressivecodec_tpu_torch.models.transforms import nchw, nhwc
+from progressivecodec_tpu_torch.utils.profiling import span
 
 BASE_PREFIX = "base_net."
 BANKS = "post_latent."
@@ -162,6 +163,7 @@ class PostRateProcessedNetwork(ChannelProgressiveWACNN):
         bounds = list(cfg.check_levels) + [10.0]
         return [0.0] + [(a + b) / 2 for a, b in zip(bounds, bounds[1:])]
 
+    @span("rem:refine")
     def _refine_prog_params(self, i, quality, mu, scale, mu_b, scale_b, y_b_hat, mask_pol,
                             training: bool = False):
         cfg = self.cfg

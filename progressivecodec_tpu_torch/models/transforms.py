@@ -21,6 +21,7 @@ from progressivecodec_tpu_torch.layers.blocks import (
     WinNoShiftAttention,
 )
 from progressivecodec_tpu_torch.ops.math import ste_round
+from progressivecodec_tpu_torch.utils.profiling import span
 
 
 class AnalysisTransform(nn.Sequential):
@@ -150,22 +151,27 @@ class ChARMFragments:
         return (nhwc(lm), nhwc(ls), z_lik, y_slices, [nhwc(t) for t in y_hat], y_lik,
                 mus, scales)
 
+    @span("frag:codec_hyper_enc")
     def codec_hyper_enc(self, y):
         return nhwc(self.h_a(nchw(y)))
 
+    @span("frag:codec_hyper_dec")
     def codec_hyper_dec(self, z_hat):
         lm, ls = self._hyper_params(nchw(z_hat))
         return nhwc(lm), nhwc(ls)
 
+    @span("frag:codec_base_params")
     def codec_base_params(self, i: int, lm, ls, support, scale_table):
         mu, scale, ms = self._base_slice(i, nchw(lm), nchw(ls), [nchw(s) for s in support])
         mu, scale, ms = nhwc(mu), nhwc(scale), nhwc(ms)
         return mu, scale, build_indexes(scale, scale_table, 0.11), ms
 
+    @span("frag:codec_base_recon")
     def codec_base_recon(self, i: int, ms, mu, vals):
         y0 = vals.reshape(mu.shape).to(torch.float32) + mu
         return y0 + nhwc(self._base_lrp(i, nchw(ms), nchw(y0)))
 
+    @span("frag:codec_base_step")
     def codec_base_step(self, j: int, include_prev: bool, lm, ls, support,
                         scale_table, ms_prev, mu_prev, vals_prev):
         """Recon of base slice j-1 + params of slice j; include_prev is True

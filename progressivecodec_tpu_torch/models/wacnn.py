@@ -25,6 +25,7 @@ from progressivecodec_tpu_torch.models.transforms import (
     nchw,
     nhwc,
 )
+from progressivecodec_tpu_torch.utils.profiling import span
 
 
 class WACNN(ChARMFragments, nn.Module):
@@ -46,6 +47,7 @@ class WACNN(ChARMFragments, nn.Module):
         self.lrp_transforms = SliceTransforms([c + dc for c in cins], dc, device=device)
         self.entropy_bottleneck = EntropyBottleneck(n, device=device)
 
+    @span("frag:analyze")
     def analyze(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 3) -> y (B, H/16, W/16, M)."""
         return nhwc(self.g_a(nchw(x)))
@@ -76,6 +78,7 @@ class WACNN(ChARMFragments, nn.Module):
         out["x_hat"] = torch.clamp(out["x_hat"], 0.0, 1.0)
         return out
 
+    @span("frag:codec_synth")
     def codec_synth(self, which: int, y_hat):
         """One synthesis whatever `which` asks."""
         return nhwc(torch.clamp(self.g_s(nchw(y_hat)), 0.0, 1.0))

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from progressivecodec_tpu_torch.utils.profiling import span
+
 REPARAM_OFFSET = 2.0**-18
 PEDESTAL = REPARAM_OFFSET**2
 
@@ -24,7 +26,10 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 class _LowerBound(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bound):
-        bound_t = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
+        # a Python bound becomes a tensor on x's device: a copy the host
+        # waits for on a card
+        with span("sync:lower_bound"):
+            bound_t = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
         ctx.save_for_backward(x, bound_t)
         return torch.maximum(x, bound_t)
 

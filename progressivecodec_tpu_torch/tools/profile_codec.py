@@ -1,39 +1,36 @@
 """Phase breakdown of the granular codec's round trip.
 
-Counterpart of tools/profile_codec.py.  `ProfiledCodec` runs each model
-fragment (`frag:<name>`) and each flat phase and scan of
-`coder/rans_device.py` (`coder:<name>`) of its `compress` and `decompress`,
-and its `serialize` and `deserialize` (`container:*`), inside a named phase;
-the rest of the round trip is `glue` (z quantisation, symbol rounding,
-`torch.cat`, the host's own work).  A fragment that another fragment calls (`codec_base_step` runs
-`codec_base_recon` and `codec_base_params`) is part of its caller, as JAX's
-fused fragment is.  A phase that holds another (`encode_stages_grouped`
-runs the encode's prepare and scan) keeps only its own time.  The wrappers
-call the same functions on the same tensors, so the containers equal a
-plain `GranularCodec`'s byte for byte.
+Counterpart of tools/profile_codec.py.  The port names its own steps
+(`utils/profiling.py`): each public codec call (`codec:*`), model fragment
+(`frag:*`), coder phase (`coder:*`), step of the codec's own between them
+(`glue:*`) and point where the host waits on the card (`sync:*`) is a span,
+and a fragment that another fragment calls (`codec_base_step` runs
+`codec_base_recon` and `codec_base_params`) is a child span of its
+caller.  Each phase's own time is its span's less its children's.  The
+spans change no computation, so the containers equal those of a codec run
+without them byte for byte.
 
 `main` profiles a model with seeded weights (`init_params`, seed 0; the
 flagship `ModelConfig()` unless `--config` names a ModelConfig JSON file)
 on one seeded image (`--size`, default 768x512): compress -> serialize ->
 deserialize -> decompress at `--quality`.  A warm-up round trip first
-checks the profiled container against a plain codec's, byte for byte, and
-every round trip must give stream_ok and the y_hat of the encoder's
-simulate=True pass.  Two modes:
-  * blocking (JAX's protocol): `torch.cuda.synchronize` at both ends of each
-    phase, host clock, `--n` round trips.  The sum exceeds an unprofiled
-    round trip; read the shares.
-  * trace: one round trip under `utils/profiling.device_trace`, each phase a
-    `torch.profiler.record_function` range.  Each kernel, copy and fill is
-    charged to the innermost phase whose range holds its launch.  The record
-    gives the device-busy ms per phase and the idle share of the traced
-    round trip, beside the median wall ms of `--n` untraced round trips
-    (host clock around work that ends in a sync): the profiler's own cost
-    is not small.
-JAX times its jitted dispatches (`_call`, `_J_*`); the port has no
-dispatch table, so its fragments, direct calls, are wrapped by name.  The
-record is printed as one JSON line, with the card's name and power limit
-on the card.  On the CPU (`--device cpu`) the times are the host's, under
-`host_*` names, and the trace mode measures no device time.
+checks the container made with the spans recorded against one made without
+them, byte for byte, and every round trip must give stream_ok and the
+y_hat of the encoder's simulate=True pass.  Two modes:
+  * blocking (JAX's protocol): `--n` round trips under
+    `profiling.recording(sync=True)`, a `torch.cuda.synchronize` at both
+    ends of each span, host clock.  The sum exceeds an unprofiled round
+    trip; read the shares.  `between_calls` is the time outside the codec's
+    calls.
+  * trace: one round trip under `utils/profiling.device_trace`, where every
+    span is a profiler range.  Each kernel, copy and fill is charged to the
+    innermost span whose range holds its launch.  The record gives the
+    device-busy ms per phase and the idle share of the traced round trip,
+    beside the median wall ms of `--n` untraced round trips (host clock
+    around work that ends in a sync): the profiler's own cost is not small.
+The record is printed as one JSON line, with the card's name and power
+limit on the card.  On the CPU (`--device cpu`) the times are the host's,
+under `host_*` names, and the trace mode measures no device time.
 
 Usage:
     python -m progressivecodec_tpu_torch.tools.profile_codec [--mode blocking|trace]
@@ -44,40 +41,30 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import statistics
 import tempfile
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
 
 from progressivecodec_tpu_torch import config as config_lib
-from progressivecodec_tpu_torch.coder import rans_device
 from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.device import resolve_device
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
 from progressivecodec_tpu_torch.models.registry import get_model
 from progressivecodec_tpu_torch.models.weights import init_params
 from progressivecodec_tpu_torch.tools.bench_coder import card_line
-from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, device_trace
+from progressivecodec_tpu_torch.utils import profiling
 
-FRAGMENTS = (
-    "analyze", "codec_hyper_enc", "codec_hyper_dec", "codec_base_params", "codec_base_step",
-    "codec_base_recon", "codec_prog_stacked", "codec_prog_recon_stacked", "codec_prog_params",
-    "codec_prog_recon", "codec_synth",
-)
-CODER = (
-    "encode_prepare", "encode_scan_rev", "encode_finalize", "encode_stages_grouped",
-    "decoder_init", "decode_stage_scan", "decode_stage_values", "grouped_decoder_init",
-    "decode_stage_grouped_scan", "decode_stage_grouped_values",
-)
+BETWEEN = "between_calls"
 GLUE = "glue"
 ROUND_TRIP = "round_trip"
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+RANGE_EVENTS = ("user_annotation", "cpu_op")  # record_function's ranges, the port's spans
 LAUNCH_EVENTS = ("cuda_runtime", "cuda_driver")
 
 
@@ -86,104 +73,9 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-class Phases:
-    """Calls and own time per named phase.  blocking: host clock between
-    device syncs at both ends, less the phases inside; trace: a
-    `record_function` range, the time read from the trace afterwards."""
-
-    def __init__(self, mode: str, device: torch.device):
-        if mode not in ("blocking", "trace"):
-            raise ValueError(f"mode {mode!r}")
-        self.mode, self.device = mode, device
-        self.calls: dict = defaultdict(int)
-        self.own_s: dict = defaultdict(float)
-        self._inner: list = []  # time of the phases inside each open blocking span
-
-    def reset(self) -> None:
-        self.calls.clear()
-        self.own_s.clear()
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        self.calls[name] += 1
-        if self.mode == "trace":
-            with torch.profiler.record_function(name):
-                yield
-            return
-        _sync(self.device)
-        self._inner.append(0.0)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            _sync(self.device)
-            dt = time.perf_counter() - t0
-            self.own_s[name] += dt - self._inner.pop()
-            if self._inner:
-                self._inner[-1] += dt
-
-
-class ProfiledCodec(GranularCodec):
-    """GranularCodec whose fragments, coder phases and container run inside
-    the named phases of `self.phases` (mode "blocking" or "trace")."""
-
-    def __init__(self, model, *args, mode: str = "blocking", **kwargs):
-        super().__init__(model, *args, **kwargs)
-        self.phases = Phases(mode, self.device)
-        self._in_fragment = False
-
-    def _fragment(self, name, fn):
-        def run(*args, **kwargs):
-            if self._in_fragment:  # called by another fragment: part of it
-                return fn(*args, **kwargs)
-            self._in_fragment = True
-            try:
-                with self.phases.span(f"frag:{name}"):
-                    return fn(*args, **kwargs)
-            finally:
-                self._in_fragment = False
-        return run
-
-    def _coder(self, name, fn):
-        def run(*args, **kwargs):
-            with self.phases.span(f"coder:{name}"):
-                return fn(*args, **kwargs)
-        return run
-
-    @contextlib.contextmanager
-    def _wrapped(self):
-        """The fragment wrappers on the model instance and the coder
-        wrappers on `rans_device`, while one public call runs."""
-        m = self.model
-        frags = [n for n in FRAGMENTS if hasattr(m, n)]
-        coder = {n: getattr(rans_device, n) for n in CODER}
-        for n in frags:
-            setattr(m, n, self._fragment(n, getattr(m, n)))
-        for n, fn in coder.items():
-            setattr(rans_device, n, self._coder(n, fn))
-        try:
-            yield
-        finally:
-            for n in frags:
-                delattr(m, n)
-            for n, fn in coder.items():
-                setattr(rans_device, n, fn)
-
-    def compress(self, *args, **kwargs):
-        with self._wrapped():
-            return super().compress(*args, **kwargs)
-
-    def decompress(self, *args, **kwargs):
-        with self._wrapped():
-            return super().decompress(*args, **kwargs)
-
-    def serialize(self, data):
-        with self.phases.span("container:serialize"):
-            return super().serialize(data)
-
-    def deserialize(self, blob):
-        with self.phases.span("container:deserialize"):
-            return super().deserialize(blob)
+def spans_since(t0_ns: int) -> list:
+    """The recorded spans opened at or after `t0_ns`."""
+    return [s for s in profiling.spans() if s.t0_ns >= t0_ns]
 
 
 def attribute_device_time(trace: dict, names, outer: str = ROUND_TRIP):
@@ -196,7 +88,7 @@ def attribute_device_time(trace: dict, names, outer: str = ROUND_TRIP):
     names = set(names) | {outer}
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
     ranges = [(e["ts"], e["ts"] + e["dur"], e.get("tid"), e["name"]) for e in events
-              if e.get("cat") == "user_annotation" and e.get("name") in names]
+              if e.get("cat") in RANGE_EVENTS and e.get("name") in names]
     launches = {e["args"]["correlation"]: (e["ts"], e.get("tid")) for e in events
                 if e.get("cat") in LAUNCH_EVENTS and "correlation" in e.get("args", {})}
     per: dict = defaultdict(lambda: [0.0, 0])
@@ -249,21 +141,22 @@ def _table(rows: dict, key: str) -> str:
     return "\n".join(lines)
 
 
-def profile(codec: ProfiledCodec, x: torch.Tensor, quality: float, n: int) -> dict:
+def profile(codec: GranularCodec, x: torch.Tensor, quality: float, n: int, mode: str) -> dict:
     """The record of `n` round trips (blocking) or of one traced round trip
     beside `n` untraced ones (trace), after a checked warm-up."""
-    dev, phases = codec.device, codec.phases
+    if mode not in ("blocking", "trace"):
+        raise ValueError(f"mode {mode!r}")
+    dev = codec.device
     data = codec.compress(x, quality=quality, simulate=True)
     ref = data["y_hat"]
-    plain = GranularCodec(codec.model, lanes=codec.lanes, groups=codec.groups,
-                          lane_policy=codec.lane_policy, device=dev)
-    blob = codec.serialize(codec.compress(x, quality=quality))
-    if blob != plain.serialize(plain.compress(x, quality=quality)):
-        raise RuntimeError("the profiled codec's container differs from the plain codec's")
+    with profiling.recording():
+        blob = codec.serialize(codec.compress(x, quality=quality))
+    if blob != codec.serialize(codec.compress(x, quality=quality)):
+        raise RuntimeError("the container made with spans recorded differs from the plain one")
     n_bytes = round_trip(codec, x, quality, ref)
     card = dev.type == "cuda"
     pre = "" if card else "host_"  # the CPU's times are the host's
-    rec = {"tool": "profile_codec", "mode": phases.mode,
+    rec = {"tool": "profile_codec", "mode": mode,
            "device": torch.cuda.get_device_name(dev) if card else "cpu",
            "model": codec.cfg.name, "size": list(x.shape[1:3]), "quality": quality,
            "lanes": codec.lanes, "groups": codec.groups, "n": n, "bytes": n_bytes,
@@ -271,17 +164,23 @@ def profile(codec: ProfiledCodec, x: torch.Tensor, quality: float, n: int) -> di
     if card:
         rec["nvidia_smi"] = card_line()
 
-    if phases.mode == "blocking":
-        phases.reset()
+    if mode == "blocking":
         _sync(dev)
+        t_ns = time.time_ns()
         t0 = time.perf_counter()
-        for _ in range(n):
-            round_trip(codec, x, quality, ref)
+        with profiling.recording(sync=True):
+            for _ in range(n):
+                round_trip(codec, x, quality, ref)
         _sync(dev)
         total = time.perf_counter() - t0
-        own = dict(phases.own_s)
-        own[GLUE] = total - sum(own.values())
-        rows = {k: {"calls": phases.calls.get(k, 0) / n, f"{pre}ms": 1e3 * v / n, "share": v / total}
+        recs = spans_since(t_ns)
+        selfs = profiling.self_ns(recs)
+        own = defaultdict(float)
+        for s in recs:
+            own[s.name] += selfs[s.id] * 1e-9
+        own[BETWEEN] = total - sum(own.values())
+        calls = Counter(s.name for s in recs)
+        rows = {k: {"calls": calls.get(k, 0) / n, f"{pre}ms": 1e3 * v / n, "share": v / total}
                 for k, v in own.items()}
         rec.update({f"{pre}round_trip_ms": 1e3 * total / n, "phases": rows})
         print(_table(rows, f"{pre}ms"), flush=True)
@@ -294,27 +193,28 @@ def profile(codec: ProfiledCodec, x: torch.Tensor, quality: float, n: int) -> di
         round_trip(codec, x, quality, ref)
         _sync(dev)
         walls.append(1e3 * (time.perf_counter() - t0))
-    phases.reset()
     with tempfile.TemporaryDirectory() as tmp:
-        with device_trace(tmp):
+        with profiling.device_trace(tmp):
             _sync(dev)
+            t_ns = time.time_ns()
             t0 = time.perf_counter()
             with torch.profiler.record_function(ROUND_TRIP):
                 round_trip(codec, x, quality, ref)
             _sync(dev)
             traced_ms = 1e3 * (time.perf_counter() - t0)
-        with open(os.path.join(tmp, TRACE_FILE)) as f:
+        with open(os.path.join(tmp, profiling.TRACE_FILE)) as f:
             trace = json.load(f)
+    calls = Counter(s.name for s in spans_since(t_ns))
     rec.update({f"{pre}untraced_round_trip_ms": statistics.median(walls),
                 f"{pre}traced_round_trip_ms": traced_ms})
     if not card:
         rec["device_time"] = "not measured: no card"
-        rec["phases"] = {k: {"calls": v} for k, v in phases.calls.items()}
+        rec["phases"] = {k: {"calls": v} for k, v in calls.items()}
         return rec
-    per, busy = attribute_device_time(trace, list(phases.calls))
-    rows = {k: {"calls": phases.calls.get(k, 0), "device_ms": ms, "events": ev,
+    per, busy = attribute_device_time(trace, list(calls))
+    rows = {k: {"calls": calls.get(k, 0), "device_ms": ms, "events": ev,
                 "share": ms / sum(v[0] for v in per.values())} for k, (ms, ev) in per.items()}
-    for k, c in phases.calls.items():  # phases that launched nothing on the card
+    for k, c in calls.items():  # phases that launched nothing on the card
         rows.setdefault(k, {"calls": c, "device_ms": 0.0, "events": 0, "share": 0.0})
     rec.update({"device_busy_ms": busy, "device_events": sum(v[1] for v in per.values()),
                 "device_events_in_trace": sum(e.get("cat") in DEVICE_EVENTS
@@ -353,11 +253,11 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)
-    codec = ProfiledCodec(seeded_model(model_config(args.config), dev), lanes=args.lanes,
-                          device=dev, mode=args.mode)
+    codec = GranularCodec(seeded_model(model_config(args.config), dev), lanes=args.lanes, device=dev)
     codec.update()
     w, h = (int(v) for v in args.size.split("x"))
-    rec = profile(codec, torch.from_numpy(seeded_image(h, w)).to(dev), args.quality, args.n)
+    rec = profile(codec, torch.from_numpy(seeded_image(h, w)).to(dev), args.quality, args.n,
+                  args.mode)
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -28,6 +28,7 @@ from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
 from progressivecodec_tpu_torch.coder.tables import check_groups, check_lanes, merge_tables
 from progressivecodec_tpu_torch.config import ScaleTableConfig
 from progressivecodec_tpu_torch.entropy.gaussian import build_gaussian_tables
+from progressivecodec_tpu_torch.utils import profiling
 
 LANES_GROUPS = [(64, 4), (32, 4), (64, 64)]
 
@@ -138,11 +139,11 @@ def test_grouped_wrapper_takes_the_twin_on_cpu_and_counts_no_launch(tables):
     dec = rans_device.grouped_decoder_init(streams, 64, 4)
     ig = torch.zeros((3, 64), dtype=torch.int32)
     kg = torch.ones((3, 64), dtype=torch.uint8)
-    before = rans_cuda.rans_decode_scan_grouped.launches
+    before = profiling.total("launch:rans_decode_scan_grouped")
     got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert rans_cuda.rans_decode_scan_grouped.launches == before
+    assert profiling.total("launch:rans_decode_scan_grouped") == before
 
 
 @pytest.mark.parametrize("bad", ["offsets", "lanes_not_multiple", "streams_dtype"])

@@ -19,6 +19,7 @@ from progressivecodec_tpu_torch.coder.tables import merge_tables
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck, build_bottleneck_tables
 from progressivecodec_tpu_torch.entropy.gaussian import build_gaussian_tables
+from progressivecodec_tpu_torch.utils import profiling
 
 TINY = ModelConfig(name="channel", N=32, M=64, dim_chunk=8, division_dimension=(32, 64),
                    scale_table=ScaleTableConfig(levels=32))
@@ -72,7 +73,8 @@ def _as_tensors(sf, kp, device="cpu"):
 
 
 def test_cpu_tensors_take_the_plain_twin_and_count_no_launch(tables):
-    before = (rans_cuda.rans_encode_scan.launches, rans_cuda.rans_decode_scan.launches)
+    scans = ("launch:rans_encode_scan", "launch:rans_decode_scan")
+    before = [profiling.total(n) for n in scans]
     sf, kp = _as_tensors(*_random_sf(5, 32, 9))
     assert all(torch.equal(a, b) for a, b in zip(rans_cuda.rans_encode_scan(sf, kp),
                                                  rans_cuda.rans_encode_scan_plain(sf, kp)))
@@ -83,7 +85,7 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch(tables):
     ig = rans_device._pad_to_grid(st[0][1], 64)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), 64)
     rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
-    assert (rans_cuda.rans_encode_scan.launches, rans_cuda.rans_decode_scan.launches) == before
+    assert [profiling.total(n) for n in scans] == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "device"])
@@ -157,11 +159,11 @@ def test_grouped_wrapper_on_cpu_takes_the_twin_at_cluster_shapes(tables, lanes, 
     dec = rans_device.grouped_decoder_init(streams, lanes, groups)
     ig = rans_device._pad_to_grid(st[0][1], lanes)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes)
-    before = rans_cuda.rans_decode_scan_grouped.launches
+    before = profiling.total("launch:rans_decode_scan_grouped")
     got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert rans_cuda.rans_decode_scan_grouped.launches == before
+    assert profiling.total("launch:rans_decode_scan_grouped") == before
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +300,10 @@ def test_plan_decode_refuses_row_ranges_outside_the_table(tables, which):
                                          (0, 64, False), (33, 1024, True)])
 def test_encode_kernel_matches_twin(cuda_device, p, k, extreme):
     sf, kp = _as_tensors(*_random_sf(p, k, p + k, extreme), cuda_device)
-    n0 = rans_cuda.rans_encode_scan.launches
+    n0 = profiling.total("launch:rans_encode_scan")
     got = rans_cuda.rans_encode_scan(sf, kp)
     torch.cuda.synchronize()
-    assert rans_cuda.rans_encode_scan.launches == n0 + 1
+    assert profiling.total("launch:rans_encode_scan") == n0 + 1
     want = rans_cuda.rans_encode_scan_plain(sf, kp)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -324,11 +326,11 @@ def _decode_on_card(tables_np, device, lanes, n, seed, rows=None, smem_cap=None,
     ig = rans_device._pad_to_grid(st[0][1], lanes).to(device)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes).to(device)
     td = rans_device.DeviceTables.from_tables(tables_np, device)
-    n0 = rans_cuda.rans_decode_scan.launches
+    n0 = profiling.total("launch:rans_decode_scan")
     got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, td.dec_sf, td.compact,
                                      rows, smem_cap=smem_cap)
     torch.cuda.synchronize()
-    assert rans_cuda.rans_decode_scan.launches == n0 + 1
+    assert profiling.total("launch:rans_decode_scan") == n0 + 1
     want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, td.dec_sf)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -396,7 +398,7 @@ def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device, tables):
     refuses it before it launches anything."""
     _decode_on_card(tables[0], cuda_device, 48, 3000, 48)
     k = 65537
-    launches = rans_cuda.rans_decode_scan.launches
+    launches = profiling.total("launch:rans_decode_scan")
     with pytest.raises(ValueError, match="lanes"):
         rans_cuda.rans_decode_scan(
             torch.zeros(k, dtype=torch.int32, device=cuda_device),
@@ -407,7 +409,7 @@ def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device, tables):
             torch.zeros(1 << 16, dtype=torch.int32, device=cuda_device),
             rans_device.DeviceTables.from_tables(tables[0], cuda_device).compact,
         )
-    assert rans_cuda.rans_decode_scan.launches == launches
+    assert profiling.total("launch:rans_decode_scan") == launches
 
 
 def _span_cap(tables_np, lanes, path):
@@ -433,11 +435,11 @@ def test_spanning_decode_kernel_matches_twin(cuda_device, tables, lanes, path):
     8192), a cooperative grid of 16 CTAs (16384), the spanning CTAs reading
     their words from global memory; on the shared and the global table."""
     route = _route(lanes)
-    before = dict(rans_cuda.SPAN_LAUNCHES)
+    before = {r: profiling.total(f"launch:{r}") for r in ("cluster", "grid")}
     _decode_on_card(tables[0], cuda_device, lanes, 24 * lanes + lanes // 3, lanes + 1,
                     smem_cap=_span_cap(tables[0], lanes, path))
     for r in ("cluster", "grid"):
-        assert rans_cuda.SPAN_LAUNCHES[r] - before[r] == (r == route)
+        assert profiling.total(f"launch:{r}") - before[r] == (r == route)
 
 
 @pytest.mark.cuda
@@ -446,10 +448,10 @@ def test_spanning_decode_kernel_matches_twin(cuda_device, tables, lanes, path):
 def test_spanning_grouped_decode_kernel_matches_twin(cuda_device, tables, lanes, groups, path):
     """Groups wider than one CTA: kt = 1025 (staged, clusters of 7 CTAs of
     160 threads) and kt = 2048 (clusters of 8 CTAs of 256)."""
-    before = rans_cuda.SPAN_LAUNCHES["cluster"]
+    before = profiling.total("launch:cluster")
     _grouped_on_card(tables[0], cuda_device, lanes, groups, 20 * lanes, 7,
                      smem_cap=_span_cap(tables[0], lanes // groups, path))
-    assert rans_cuda.SPAN_LAUNCHES["cluster"] - before == 2
+    assert profiling.total("launch:cluster") - before == 2
 
 
 @pytest.mark.cuda
@@ -463,13 +465,14 @@ def test_tiny_codec_round_trip_on_card(cuda_device, q):
     model.load_state_dict(init_params(TINY, torch.Generator().manual_seed(0)), strict=True)
     codec = GranularCodec(model, lanes=64)
     x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(q), dtype=torch.float32)
-    n_enc, n_dec = rans_cuda.rans_encode_scan.launches, rans_cuda.rans_decode_scan.launches
+    n_enc = profiling.total("launch:rans_encode_scan")
+    n_dec = profiling.total("launch:rans_decode_scan")
     data = codec.compress(x.to(cuda_device), quality=q, simulate=True)
     out = codec.decompress(codec.deserialize(codec.serialize(data)))
     assert out["stream_ok"]
     assert torch.equal(out["y_hat"], data["y_hat"])
-    assert rans_cuda.rans_encode_scan.launches == n_enc + 1
-    assert rans_cuda.rans_decode_scan.launches == n_dec + 1 + TINY.ns0 + (q > 0)
+    assert profiling.total("launch:rans_encode_scan") == n_enc + 1
+    assert profiling.total("launch:rans_decode_scan") == n_dec + 1 + TINY.ns0 + (q > 0)
 
 
 def _grouped_on_card(tables_np, device, lanes, groups, n, seed, smem_cap=None):
@@ -484,11 +487,11 @@ def _grouped_on_card(tables_np, device, lanes, groups, n, seed, smem_cap=None):
     for _, idx, keep in st:
         ig = rans_device._pad_to_grid(idx, lanes).to(device)
         kg = rans_device._pad_to_grid(keep.to(torch.uint8), lanes).to(device)
-        n0 = rans_cuda.rans_decode_scan_grouped.launches
+        n0 = profiling.total("launch:rans_decode_scan_grouped")
         got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, td.dec_sf,
                                                  td.compact, smem_cap=smem_cap)
         torch.cuda.synchronize()
-        assert rans_cuda.rans_decode_scan_grouped.launches == n0 + 1
+        assert profiling.total("launch:rans_decode_scan_grouped") == n0 + 1
         want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, td.dec_sf)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
@@ -549,13 +552,13 @@ def test_tiny_codec_families_round_trip_on_card(cuda_device, model_kw, groups):
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(1)), strict=True)
     codec = GranularCodec(model, lanes=64, groups=groups)
     x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(2), dtype=torch.float32)
-    scans = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, rans_cuda.rans_decode_scan_grouped)
-    before = [s.launches for s in scans]
+    scans = ("launch:rans_encode_scan", "launch:rans_decode_scan", "launch:rans_decode_scan_grouped")
+    before = [profiling.total(s) for s in scans]
     data = codec.compress(x.to(cuda_device), quality=5, simulate=True)
     out = codec.decompress(codec.deserialize(codec.serialize(data)))
     assert out["stream_ok"]
     assert torch.equal(out["y_hat"], data["y_hat"])
-    enc, dec, grp = (s.launches - b for s, b in zip(scans, before))
+    enc, dec, grp = (profiling.total(s) - b for s, b in zip(scans, before))
     n_prog = 0 if cfg.name == "cnn" else (1 if model.stacked else cfg.num_prog_slices)
     stages = 1 + (cfg.M // cfg.dim_chunk if cfg.name == "cnn" else cfg.ns0) + n_prog
     assert (enc, dec, grp) == ((1, stages, 0) if groups == 1 else (1, 0, stages))

@@ -1,7 +1,9 @@
 """PyTorch port: phase timers, device traces, FLOP counting and MFU.
 
-  * `PhaseTimer` counts and sums each phase, `summary()` and `dump()` as in
-    JAX; a CPU tensor as `sync` needs no device sync;
+  * the blocking recorder (`recording(sync=True)`), the port's stand-in for
+    JAX's `PhaseTimer`: each span is counted and timed, a span that raises
+    still closes, a span's own time is its duration less its children's,
+    and on the CPU the syncs are no-ops;
   * `device_trace` writes a Chrome trace on the CPU that names the ops run;
   * `count_flops` of TINY's `forward_single_quality` (N=32, M=64, dim_chunk
     8, 64x64, q in {0, 10}) against JAX's `count_flops` of the same forward,
@@ -19,6 +21,8 @@
 """
 
 import json
+import time
+from collections import Counter
 
 import jax
 import jax.numpy as jnp
@@ -38,29 +42,34 @@ from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
 from progressivecodec_tpu_torch.models.weights import from_jax_params, init_params
 from progressivecodec_tpu_torch.utils import flops
-from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, PhaseTimer, device_trace
+from progressivecodec_tpu_torch.utils import profiling
+from progressivecodec_tpu_torch.utils.profiling import TRACE_FILE, device_trace
 
 TINY_KW = dict(name="channel", N=32, M=64, dim_chunk=8, division_dimension=(32, 64))
 CFG = ModelConfig(**TINY_KW, scale_table=ScaleTableConfig(levels=32))
 JCFG = JaxModelConfig(**TINY_KW, scale_table=JaxScaleTableConfig(levels=32))
 
 
-def test_phase_timer(tmp_path):
-    timer = PhaseTimer()
-    for _ in range(3):
-        with timer.phase("a", sync=torch.ones(2)):
-            torch.ones(8).sum()
-    with timer.phase("b"):
-        pass
-    with pytest.raises(ValueError):
-        with timer.phase("c"):
-            raise ValueError("the phase still counts")
-    s = timer.summary()
-    assert set(s) == {"a", "b", "c"}
-    assert (s["a"]["n"], s["b"]["n"], s["c"]["n"]) == (3, 1, 1)
-    assert s["a"]["total_s"] > 0 and s["a"]["mean_s"] == pytest.approx(s["a"]["total_s"] / 3)
-    timer.dump(str(tmp_path / "phases.json"))
-    assert json.loads((tmp_path / "phases.json").read_text()) == s
+def test_phase_timer():
+    t = time.time_ns()
+    with profiling.recording(sync=True):
+        for _ in range(3):
+            with profiling.span("a"):
+                torch.ones(8).sum()
+        with profiling.span("b"):
+            with profiling.span("a"):
+                pass
+        with pytest.raises(ValueError):
+            with profiling.span("c"):
+                raise ValueError("the span still closes")
+    assert not profiling.on() and profiling.open_spans() == []
+    recs = [s for s in profiling.spans() if s.t0_ns >= t]
+    assert Counter(s.name for s in recs) == {"a": 4, "b": 1, "c": 1}
+    b = next(s for s in recs if s.name == "b")
+    (inner,) = [s for s in recs if s.parent == b.id]
+    assert inner.name == "a" and inner.call == b.call == b.id
+    assert profiling.self_ns(recs)[b.id] == (b.t1_ns - b.t0_ns) - (inner.t1_ns - inner.t0_ns)
+    assert all(s.t1_ns > s.t0_ns for s in recs if s is not inner)
 
 
 def test_device_trace_on_the_cpu(tmp_path):

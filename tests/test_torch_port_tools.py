@@ -3,13 +3,14 @@ against the JAX package's tools/ on the same inputs.
 
 At TINY (N=32, M=64, dim_chunk 8, division (32, 64)) on the port's seeded
 weights, carried into JAX's tree by `import_progressive`:
-  * profile_codec: the profiled codec's containers equal the plain codec's
-    byte for byte at q in {0, 10}; its `frag:*` call counts equal those of
-    JAX's tools/profile_codec.ProfiledCodec (loaded by path) over the same
-    round trip, and `coder:decode_stage_scan` runs once per stage; the
-    wrappers are gone after each call; the trace attribution charges each
-    device event to the innermost phase of its launch; `main` runs on the
-    CPU in both modes and writes no device metric there;
+  * profile_codec and the port's spans: the containers made while the
+    spans record (the blocking protocol) equal those made without them,
+    byte for byte at q in {0, 10}; the outermost `frag:*` spans of a round
+    trip count as JAX's tools/profile_codec.ProfiledCodec (loaded by path)
+    counts its fragments, and `coder:decode_stage_scan` runs once per stage;
+    the trace attribution charges each device event to the innermost phase
+    of its launch; `main` runs on the CPU in both modes and writes no
+    device metric there;
   * bench_2k: the untiled and the tiled (one-rank gloo mesh) round trips at
     64x128 decode with stream_ok, and the tiled x_hat is within 1e-5 of the
     untiled one's peak (the one tile is the image itself: JAX's layout,
@@ -29,6 +30,8 @@ import importlib.util
 import json
 import pathlib
 import sys
+import time
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +46,6 @@ from progressivecodec_tpu.utils import rd as jax_rd
 from test_torch_port_variants import one_torch_thread, share_jax_compiles  # noqa: F401
 
 from progressivecodec_tpu_torch import config as config_lib
-from progressivecodec_tpu_torch.coder import rans_device
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig, TrainConfig
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
 from progressivecodec_tpu_torch.models.registry import get_model
@@ -53,6 +55,7 @@ from progressivecodec_tpu_torch.parallel import tiling
 from progressivecodec_tpu_torch.tools import bd_trajectory, bench_2k, profile_codec, rd_ladder
 from progressivecodec_tpu_torch.training.checkpoint import save_checkpoint
 from progressivecodec_tpu_torch.training.step import init_train_state
+from progressivecodec_tpu_torch.utils import profiling
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TINY_KW = dict(name="channel", N=32, M=64, dim_chunk=8, division_dimension=(32, 64))
@@ -102,58 +105,75 @@ def jax_counts(setup):
 # ---------------------------------------------------------------------------
 
 
+def _recorded(fn, sync: bool = False):
+    """fn() while the spans record: (its result, the spans it recorded)."""
+    t = time.time_ns()
+    with profiling.recording(sync=sync):
+        out = fn()
+    return out, profile_codec.spans_since(t)
+
+
 @pytest.mark.parametrize("q", [0, 10])
 def test_profiled_containers_equal_plain(setup, q):
     model, _ = setup
     x = torch.from_numpy(_image(q))
-    prof = profile_codec.ProfiledCodec(model, lanes=64, device="cpu")
-    plain = GranularCodec(model, lanes=64, device="cpu")
-    data = prof.compress(x, quality=q, simulate=True)
-    blob = prof.serialize(data)
-    assert blob == plain.serialize(plain.compress(x, quality=q))
-    out = prof.decompress(prof.deserialize(blob))
+    codec = GranularCodec(model, lanes=64, device="cpu")
+    data, recs = _recorded(lambda: codec.compress(x, quality=q, simulate=True), sync=True)
+    blob = codec.serialize(data)
+    assert recs and blob == codec.serialize(codec.compress(x, quality=q))
+    out, _ = _recorded(lambda: codec.decompress(codec.deserialize(blob)), sync=True)
     assert out["stream_ok"] and torch.equal(out["y_hat"], data["y_hat"])
+
+
+def outermost_fragments(recs) -> Counter:
+    """Calls of each `frag:*` span that no `frag:*` span holds: JAX's rule,
+    where a fragment another fragment calls is part of it."""
+    by_id = {s.id: s for s in recs}
+
+    def inside_fragment(s):
+        p = by_id.get(s.parent)
+        while p is not None:
+            if p.name.startswith("frag:"):
+                return True
+            p = by_id.get(p.parent)
+        return False
+
+    return Counter(s.name for s in recs if s.name.startswith("frag:") and not inside_fragment(s))
 
 
 @pytest.mark.parametrize("q", [0, 10])
 def test_fragment_counts_match_jax(setup, jax_counts, q):
     model, _ = setup
-    codec = profile_codec.ProfiledCodec(model, lanes=64, device="cpu")
-    codec.decompress(codec.compress(torch.from_numpy(_image(q)), quality=q, simulate=True))
-    ours = {k: v for k, v in codec.phases.calls.items() if k.startswith("frag:")}
+    codec = GranularCodec(model, lanes=64, device="cpu")
+    x = torch.from_numpy(_image(q))
+    _, recs = _recorded(lambda: codec.decompress(codec.compress(x, quality=q, simulate=True)))
     theirs = {k: v for k, v in jax_counts[q].items() if k.startswith("frag:")}
-    assert ours == theirs
-    stages = 1 + CFG.ns0 + (q > 0)
-    assert codec.phases.calls["coder:decode_stage_scan"] == stages
-    assert codec.phases.calls["coder:encode_scan_rev"] == 1
+    assert dict(outermost_fragments(recs)) == theirs
+    calls = Counter(s.name for s in recs)
+    assert calls["coder:decode_stage_scan"] == 1 + CFG.ns0 + (q > 0)
+    assert calls["coder:encode_scan_rev"] == 1
 
 
 def test_grouped_phases(setup):
-    """PCT1-G: the grouped encode keeps its own finalize time, its prepare
-    and scan are phases of their own, and each stage is one grouped scan."""
+    """PCT1-G: the grouped encode holds its prepare and scan as child spans
+    and keeps its own finalize time, and each stage is one grouped scan."""
     model, _ = setup
-    codec = profile_codec.ProfiledCodec(model, lanes=64, groups=2, device="cpu")
+    codec = GranularCodec(model, lanes=64, groups=2, device="cpu")
     x = torch.from_numpy(_image(4))
     data = codec.compress(x, quality=10, simulate=True)
-    out = codec.decompress(codec.deserialize(codec.serialize(data)))
+    out, recs = _recorded(lambda: codec.decompress(codec.deserialize(codec.serialize(
+        codec.compress(x, quality=10)))))
     assert out["stream_ok"] and torch.equal(out["y_hat"], data["y_hat"])
-    calls = codec.phases.calls
+    calls = Counter(s.name for s in recs)
     assert calls["coder:encode_stages_grouped"] == calls["coder:encode_prepare"] == 1
     assert calls["coder:encode_scan_rev"] == calls["coder:grouped_decoder_init"] == 1
     assert calls["coder:decode_stage_grouped_scan"] == calls["coder:decode_stage_grouped_values"] \
         == 1 + CFG.ns0 + 1
     assert "coder:decode_stage_scan" not in calls and "coder:encode_finalize" not in calls
-    assert all(v >= 0 for v in codec.phases.own_s.values())
-
-
-def test_wrappers_removed_after_each_call(setup):
-    model, _ = setup
-    before = {n: getattr(rans_device, n) for n in profile_codec.CODER}
-    codec = profile_codec.ProfiledCodec(model, lanes=64, device="cpu", mode="trace")
-    codec.decompress(codec.compress(torch.from_numpy(_image(3)), quality=5))
-    assert {n: getattr(rans_device, n) for n in profile_codec.CODER} == before
-    assert not any(n in vars(model) for n in profile_codec.FRAGMENTS)
-    assert codec.phases.calls["frag:analyze"] == 1 and not codec.phases.own_s
+    grouped = next(s for s in recs if s.name == "coder:encode_stages_grouped")
+    assert {s.name for s in recs if s.parent == grouped.id} == {"coder:encode_prepare",
+                                                                 "coder:encode_scan_rev"}
+    assert all(v >= 0 for v in profiling.self_ns(recs).values())
 
 
 def _x(name, cat, ts, dur, tid=1, **args):
