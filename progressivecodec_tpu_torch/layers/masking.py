@@ -38,12 +38,9 @@ def row_quantile(flat: torch.Tensor, q: float) -> torch.Tensor:
     low_w = np.float32(1.0) - high_w
     lo_i = int(np.clip(low, 0, n - 1))
     hi_i = int(np.clip(high, 0, n - 1))
-    w = lambda v: torch.tensor(v, dtype=F32, device=flat.device)  # noqa: E731
-    # three copies to flat's device, each of which the host waits for on a card
-    with span("sync:quantile_weights"):
-        low_t, high_t, nan_t = w(low_w), w(high_w), w(np.nan)
-    out = srt[:, lo_i] * low_t + srt[:, hi_i] * high_t
-    return torch.where(torch.isnan(flat).any(dim=1), nan_t, out)
+    # the float32 weights enter as Python numbers: kernel arguments, no copy
+    out = srt[:, lo_i] * float(low_w) + srt[:, hi_i] * float(high_w)
+    return torch.where(torch.isnan(flat).any(dim=1), float("nan"), out)
 
 
 def quantile_mask(values: torch.Tensor, keep_frac: float) -> torch.Tensor:

@@ -12,8 +12,6 @@ from __future__ import annotations
 
 import torch
 
-from progressivecodec_tpu_torch.utils.profiling import span
-
 REPARAM_OFFSET = 2.0**-18
 PEDESTAL = REPARAM_OFFSET**2
 
@@ -24,19 +22,18 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 
 
 class _LowerBound(torch.autograd.Function):
+    # the bound stays a Python number: torch rounds it to x's dtype and passes
+    # it to the kernel as an argument, so no copy to the card and no wait
     @staticmethod
     def forward(ctx, x, bound):
-        # a Python bound becomes a tensor on x's device: a copy the host
-        # waits for on a card
-        with span("sync:lower_bound"):
-            bound_t = torch.as_tensor(bound, dtype=x.dtype, device=x.device)
-        ctx.save_for_backward(x, bound_t)
-        return torch.maximum(x, bound_t)
+        ctx.save_for_backward(x)
+        ctx.bound = bound
+        return torch.clamp_min(x, bound)
 
     @staticmethod
     def backward(ctx, g):
-        x, bound_t = ctx.saved_tensors
-        pass_through = (x >= bound_t) | (g < 0)
+        (x,) = ctx.saved_tensors
+        pass_through = (x >= ctx.bound) | (g < 0)
         return torch.where(pass_through, g, torch.zeros_like(g)), None
 
 

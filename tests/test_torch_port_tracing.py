@@ -11,10 +11,14 @@ codec, on the CPU at TINY (N=32, M=64, dim_chunk 8, division (32, 64)),
   * the `words:*` counters sum to the container's `num_bytes`, on the spans
     and in the process-wide totals;
   * with recording off nothing is buffered; with the spans on under the
-    profiler the containers equal those of a plain codec byte for byte.
+    profiler the containers equal those of a plain codec byte for byte;
+  * the host waits on the card only at the container's four points: a
+    round trip records `sync:n_words`, `sync:words_to_host`,
+    `sync:words_to_device` and `sync:stream_ok` once each and no other
+    `sync:*` span, in both configurations at q in {0, 5, 10}.
 On the card (marked `cuda`): in a round trip at q = 5 under
 `torch.cuda.set_sync_debug_mode("warn")`, every synchronizing call torch
-reports is made inside a `sync:*` span.
+reports is made inside one of those four spans.
 
 This file imports no JAX, so the card runs it:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_tracing.py`.
@@ -38,6 +42,7 @@ from progressivecodec_tpu_torch.utils import profiling
 TINY_KW = dict(N=32, M=64, dim_chunk=8, division_dimension=(32, 64),
                scale_table=ScaleTableConfig(levels=32))
 ROOTS = ["codec:compress", "codec:serialize", "codec:deserialize", "codec:decompress"]
+CONTAINER_SYNCS = ["sync:n_words", "sync:words_to_host", "sync:words_to_device", "sync:stream_ok"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -156,6 +161,15 @@ def test_round_trip_records_each_fragment_and_phase(codecs, name, q):
 
 
 @pytest.mark.parametrize("name", ["channel", "rate"])
+@pytest.mark.parametrize("q", [0.0, 5.0, 10.0])
+def test_round_trip_waits_only_at_the_container_syncs(codecs, name, q):
+    (_, _, out), recs = recorded(lambda: round_trip(codecs[name], image(8), q))
+    assert out["stream_ok"]
+    syncs = Counter(s.name for s in recs if s.name.startswith("sync:"))
+    assert dict(syncs) == {n: 1 for n in CONTAINER_SYNCS}
+
+
+@pytest.mark.parametrize("name", ["channel", "rate"])
 def test_word_counters_equal_the_container(codecs, name):
     codec = codecs[name]
     before = profiling.totals()
@@ -224,5 +238,5 @@ def test_every_sync_lies_in_a_sync_span(cuda_device, name):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [(m, st) for m, st in seen if "called a synchronizing CUDA operation" in m]
     assert ok and syncs, seen
-    outside = [st for _, st in syncs if not any(n.startswith("sync:") for n in st)]
+    outside = [st for _, st in syncs if not any(n in CONTAINER_SYNCS for n in st)]
     assert not outside, outside
