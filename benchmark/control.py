@@ -16,8 +16,9 @@ correct (PERF.md, Open questions).
     python3 -m benchmark.control --workload <cell> --seeds 11,12,13
 
 runs on the card, at the cell's own size, over the requests a run of each
-seed checks, and prints one JSON line per seed and variant.  The benchmark's
-runs never run it.
+seed checks, with the plain reference the cell's configuration names, and
+prints one JSON line per seed and variant.  The benchmark's runs never run
+it.
 """
 
 from __future__ import annotations
@@ -30,40 +31,42 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from benchmark import compare, harness, traffic, weights
 from benchmark.reference import coder
-from benchmark.reference import model as ref
 
 
 @contextlib.contextmanager
 def precision(variant: str):
     """"tf32": TF32 on; "channels_last": float32 convolutions in the
-    channels-last layout; "fp32": the reference as it is."""
+    channels-last layout (every reference convolves through
+    `torch.nn.functional`); "fp32": the reference as it is."""
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    conv2d, deconv = torch.nn.functional.conv2d, torch.nn.functional.conv_transpose2d
+    conv2d, deconv = F.conv2d, F.conv_transpose2d
     tf32 = variant == "tf32"
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
     if variant == "channels_last":
         cl = torch.channels_last
-        ref.F.conv2d = lambda x, w, *a, **k: conv2d(x.contiguous(memory_format=cl),
-                                                    w.contiguous(memory_format=cl), *a, **k).contiguous()
-        ref.F.conv_transpose2d = lambda x, w, *a, **k: deconv(x.contiguous(memory_format=cl),
-                                                              w.contiguous(memory_format=cl), *a, **k).contiguous()
+        F.conv2d = lambda x, w, *a, **k: conv2d(x.contiguous(memory_format=cl),
+                                                w.contiguous(memory_format=cl), *a, **k).contiguous()
+        F.conv_transpose2d = lambda x, w, *a, **k: deconv(x.contiguous(memory_format=cl),
+                                                          w.contiguous(memory_format=cl), *a, **k).contiguous()
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-        ref.F.conv2d, ref.F.conv_transpose2d = conv2d, deconv
+        F.conv2d, F.conv_transpose2d = conv2d, deconv
 
 
-def readings(conf: dict, mix: dict, seed: int, dev, variants) -> dict:
+def readings(ref, conf: dict, mix: dict, seed: int, dev, variants) -> dict:
     """{variant: worst of each number} over the requests a run of `seed`
-    checks, each variant in the program's place against the reference."""
+    checks, each variant of the reference module `ref` in the program's
+    place against `ref` as it is."""
     cfg = ref.Cfg(conf["model"])
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    P = weights.draw_weights(ref.param_spec(cfg), conf["weights_seed"], dev, conf.get("init"))
+    P = weights.config_weights(ref, conf, dev)
     pool = traffic.image_pool(mix, dev)
     sched = traffic.Schedule(mix, seed)
     eb = {k.split(".")[-1]: v.cpu().numpy() for k, v in P.items() if "entropy_bottleneck" in k}
@@ -102,9 +105,10 @@ def main(argv=None) -> int:
         print("the control runs on the card", file=sys.stderr)
         return 2
     _, _, conf, mix = harness.load_cell(Path.cwd(), args.workload)
+    ref = harness.reference(Path.cwd(), conf)
     dev = torch.device("cuda", 0)
     for s in (int(v) for v in args.seeds.split(",")):
-        w = readings(conf, mix, s, dev, args.variants.split(","))
+        w = readings(ref, conf, mix, s, dev, args.variants.split(","))
         for v, nums in w.items():
             print(json.dumps({"workload": args.workload, "seed": s, "variant": v, **nums}), flush=True)
     return 0

@@ -2,7 +2,8 @@
 the comparison with the plain reference, and the result line.
 
 Everything a cell needs is found by name: the cell in `BENCHMARK.json`, its
-configuration file, its traffic mix under `benchmark/traffic/`, and each
+configuration file, the plain reference that file names under
+`benchmark/reference/`, its traffic mix under `benchmark/traffic/`, and each
 per-layer metric's reader under `benchmark/metrics/`.  From the program
 (`progressivecodec_tpu_torch`) the run takes only the system under test:
 the model and `GranularCodec`, the fragments and coder phases it wraps in
@@ -33,7 +34,6 @@ import torch
 
 from benchmark import compare, trace, traffic, weights
 from benchmark.reference import coder
-from benchmark.reference import model as ref
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "progressivecodec_tpu")
 
@@ -67,6 +67,20 @@ def metric_reader(root: Path, name: str):
             spec.loader.exec_module(mod)
             return mod.read
     raise FileNotFoundError(f"no reader for metric {name!r} under {base}")
+
+
+def reference(root: Path, conf: dict):
+    """The plain reference module a configuration names (`"reference"`,
+    `model` where absent): `benchmark/reference/<stem>.py` under `root`,
+    registered in `sys.modules` as `benchmark_reference_<stem>` so that the
+    yardstick finds it from the `Cfg` it makes."""
+    stem = conf.get("reference", "model")
+    name = f"benchmark_reference_{stem}"
+    spec = importlib.util.spec_from_file_location(name, root / "benchmark" / "reference" / f"{stem}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def forbidden_modules() -> list:
@@ -130,9 +144,10 @@ def _sync(dev: torch.device) -> None:
 
 
 class Program:
-    """The system under test, built from a configuration file."""
+    """The system under test, built from a configuration file, with the
+    weights drawn by the spec of its reference module `ref`."""
 
-    def __init__(self, conf: dict, dev: torch.device, log):
+    def __init__(self, conf: dict, dev: torch.device, log, ref):
         from progressivecodec_tpu_torch import device as pdev
         from progressivecodec_tpu_torch.coder import rans_device
         from progressivecodec_tpu_torch.config import model_config_from_json
@@ -143,8 +158,7 @@ class Program:
         pdev.set_deterministic()
         t = time.perf_counter()
         self.model = get_model(model_config_from_json(json.dumps(conf["model"])), device=dev)
-        sd = weights.draw_weights(ref.param_spec(ref.Cfg(conf["model"])), conf["weights_seed"], dev,
-                                  conf.get("init"))
+        sd = weights.config_weights(ref, conf, dev)
         self.model.load_state_dict(sd, strict=True)
         del sd
         _sync(dev)
@@ -177,8 +191,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace_on: boo
              dev: torch.device, started: float, log=print, program_factory=Program) -> dict:
     """One run; returns the result line's object (with "checks" last)."""
     bench, cell, conf, mix = load_cell(root, workload)
+    ref = reference(root, conf)
     cfg = ref.Cfg(conf["model"])
-    prog = program_factory(conf, dev, log)
+    prog = program_factory(conf, dev, log, ref)
     t = time.perf_counter()
     pool = traffic.image_pool(mix, dev)
     sched = traffic.Schedule(mix, seed)
@@ -256,7 +271,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace_on: boo
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    limits, worst, tables = check(kept, conf, mix, cfg, dev, log)
+    limits, worst, tables = check(kept, conf, mix, ref, cfg, dev, log)
     run["cdf_length"] = tables.cdf_length
     log(f"comparison with the reference ({len(kept)} requests) {time.perf_counter() - t:.3f} s")
     if trace_on:
@@ -323,16 +338,16 @@ def payload_words(blob: bytes) -> int:
     return len(c["words"])
 
 
-def check(kept: dict, conf: dict, mix: dict, cfg, dev, log):
-    """The reference on each kept request: (limits, the worst of each
-    number, the reference's coder tables)."""
+def check(kept: dict, conf: dict, mix: dict, ref, cfg, dev, log):
+    """The reference module `ref` on each kept request: (limits, the worst
+    of each number, the reference's coder tables)."""
     limits = compare.LIMITS
     worst = {k: 0.0 for k in limits} if kept else {k: math.inf for k in limits}
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    P = weights.draw_weights(ref.param_spec(cfg), conf["weights_seed"], dev, conf.get("init"))
+    P = weights.config_weights(ref, conf, dev)
     pool = traffic.image_pool(mix, dev)
     eb = {k.split(".")[-1]: v.cpu().numpy() for k, v in P.items() if "entropy_bottleneck" in k}
     tables = coder.Tables(eb, cfg.scale_table)

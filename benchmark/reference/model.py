@@ -17,7 +17,9 @@ in `benchmark/compare.py`.
 `reference_request` returns, for one request (a batch of images at one
 quality), the coder's stages (symbols, CDF rows, keep flags) in the order
 the container codes them, the latent the synthesis decodes (`y_hat`), and
-the reconstruction (`x_hat`).
+the reconstruction (`x_hat`).  `stage_sizes` and `chain_flops` give the
+container's stages and the round trip's FLOPs for the yardstick (the
+interface every reference keeps is in `benchmark/reference/__init__.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from benchmark.yardstick import _count
 
 F32 = torch.float32
 PEDESTAL = (2.0**-18) ** 2
@@ -518,6 +522,46 @@ def reference_request(P, cfg: Cfg, x, quality: float, medians=None) -> dict:
 def _flat(stages):
     return [(s.reshape(-1).to(torch.int32), r.reshape(-1).to(torch.int32), k.reshape(-1).to(torch.bool))
             for s, r, k in stages]
+
+
+# ---------------------------------------------------------------------------
+# the container's stages and the round trip's FLOPs
+# ---------------------------------------------------------------------------
+
+
+def stage_sizes(cfg: Cfg, batch: int, h: int, w: int, quality: float) -> list:
+    """Symbols per stage of the container, in coding order: z at 1/64, the
+    base slices at 1/16, then the enhancement as one stacked stage or one
+    stage per slice."""
+    hy, wy = h // 16, w // 16
+    sizes = [batch * (hy // 4) * (wy // 4) * cfg.N] + [batch * hy * wy * cfg.dc] * cfg.ns0
+    if quality > 0:
+        sizes += [cfg.n_prog * batch * hy * wy * cfg.dc] if cfg.stacked else [batch * hy * wy * cfg.dc] * cfg.n_prog
+    return sizes
+
+
+def chain_flops(cfg: Cfg, batch: int, h: int, w: int, quality: float) -> int:
+    """FLOPs (convolutions and products) one request needs: the encoder's
+    analysis, hyper analysis and every entropy parameter, the decoder's
+    entropy parameters, enhancement refinement and synthesis.  Counted over
+    meta tensors: 2 x the forward, less the analysis and hyper analysis the
+    decoder skips, less the enhancement refinement and synthesis the encoder
+    skips."""
+    meta = torch.device("meta")
+    P = {n: torch.empty(s, device=meta) for n, s, _ in param_spec(cfg)}
+    x = torch.empty((batch, h, w, 3), device=meta)
+    xb = torch.empty((batch, 3, h, w), device=meta)
+    med = torch.empty((cfg.N,), device=meta)
+    fwd = _count(lambda: reference_request(P, cfg, x, quality, medians=med))
+    y = torch.empty((batch, 2 * cfg.d0, h // 16, w // 16), device=meta)
+    ga = _count(lambda: g_a(P, cfg, xb))
+    ha = _count(lambda: h_a(P, cfg, y))
+    gs = _count(lambda: g_s(P, cfg, 1 if quality > 0 else 0, y[:, : cfg.d0]))
+    lrp = 0
+    if quality > 0:
+        t = torch.empty((batch, cfg.d1 - cfg.d0 + 2 * cfg.dc, h // 16, w // 16), device=meta)
+        lrp = cfg.n_prog * _count(lambda: stack5(P, f"{cfg.base}lrp_transforms_prog.0", t))
+    return 2 * fwd - ga - ha - gs - lrp
 
 
 def fan_std(shape, kind) -> float:

@@ -15,8 +15,9 @@ def test_tf32_control_fails(card, tmp_path):
     root = tiny.make_root(tmp_path, qualities=(0.0, 3.7, 10.0), check_requests=3)
     for wl in ("flagship.kodak_b1_finegrid", "rem.kodak_b1_finegrid"):
         _, _, conf, mix = harness.load_cell(root, wl)
+        ref = harness.reference(root, conf)
         mix.update({"height": 256, "width": 384})
         for seed in (11, 12, 13):
-            w = control.readings(conf, mix, seed, card, ["fp32", "tf32"])
+            w = control.readings(ref, conf, mix, seed, card, ["fp32", "tf32"])
             assert compare.verdict(w["fp32"], compare.LIMITS), w["fp32"]
             assert not compare.verdict(w["tf32"], compare.LIMITS), w["tf32"]

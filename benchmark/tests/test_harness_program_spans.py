@@ -81,7 +81,7 @@ def test_device_readings_unmoved_by_native_spans(tmp_path, monkeypatch):
     torch.set_num_threads(2)
     for config in ("flagship", "rem"):
         conf = tiny.tiny_conf(root, config)
-        prog = harness.Program(conf, torch.device("cpu"), lambda m: None)
+        prog = harness.Program(conf, torch.device("cpu"), lambda m: None, harness.reference(root, conf))
         x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(1))
         prog.request(x, 4.2)
         n0 = len(profiling.spans())

@@ -1,5 +1,5 @@
 """A tiny benchmark tree for the CPU tests: the real harness, readers and
-reference, with the TINY model (N 32, M 64) at 64x64 and short mixes."""
+references, with the TINY model (N 32, M 64) at 64x64 and short mixes."""
 
 from __future__ import annotations
 
@@ -22,8 +22,9 @@ def make_root(tmp: Path, batch: int = 1, qualities=(0.0, 3.7, 10.0), check_reque
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     (tmp / "benchmark" / "configs").mkdir(parents=True)
     (tmp / "benchmark" / "traffic").mkdir(parents=True)
-    shutil.copytree(REPO / "benchmark" / "metrics", tmp / "benchmark" / "metrics",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+    for d in ("metrics", "reference"):
+        shutil.copytree(REPO / "benchmark" / d, tmp / "benchmark" / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for c in bench["configs"]:
         conf = json.loads((REPO / c["file"]).read_text())
         conf["model"].update(TINY_MODEL)

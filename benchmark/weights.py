@@ -3,14 +3,16 @@
 A configuration draws its weights from its own `weights_seed`: the model is
 fixed, as a deployment's checkpoint is, and the run's seed draws the traffic.
 
-The shapes and the kind of each tensor come from the plain reference's
-`param_spec`; the draw follows the initialisers of the program's JAX
-original (Kaiming-normal fan_out convolutions and deconvolutions with zero
-biases, lecun-normal truncated attention projections, truncated-normal
-relative-position tables, GDN at beta = 1 and gamma = 0.1 I in its
-reparametrised space, the entropy bottleneck's own start), with REM's
-`zero_out` projections drawn from N(0, 0.02^2) so that every bank changes
-sigma.  A configuration file's "init" object overrides the std (or sets a
+The shapes and the kind of each tensor come from the configuration's plain
+reference's `param_spec`; the draw follows the initialisers of the
+program's JAX original (Kaiming-normal fan_out convolutions and
+deconvolutions with zero biases, lecun-normal truncated attention
+projections, truncated-normal relative-position tables, GDN at beta = 1 and
+gamma = 0.1 I in its reparametrised space, the entropy bottleneck's own
+start, LayerNorm gains at one), with REM's `zero_out` projections drawn
+from N(0, 0.02^2) so that every bank changes sigma.  A reference may
+declare kinds of its own (`INIT_KINDS`, `benchmark/reference/__init__.py`).
+A configuration file's "init" object overrides the std (or sets a
 constant) of the tensors whose names match a regular expression.
 
 Each kind is drawn in one call on a `torch.Generator` of the device, so the
@@ -46,8 +48,9 @@ def _split(flat: torch.Tensor, shapes) -> list:
     return out
 
 
-def draw_weights(spec, seed: int, device, init: dict | None = None) -> dict:
-    """{name: tensor} for `spec` ([(name, shape, kind)]) from `seed`."""
+def draw_weights(spec, seed: int, device, init: dict | None = None, kinds: dict | None = None) -> dict:
+    """{name: tensor} for `spec` ([(name, shape, kind)]) from `seed`; `kinds`
+    ({kind: {"std": s} | {"const": c}}) draws kinds of the reference's own."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
     rules = [(re.compile(k), v) for k, v in (init or {}).items()]
@@ -63,6 +66,12 @@ def draw_weights(spec, seed: int, device, init: dict | None = None) -> dict:
         rule = override(name)
         if rule is not None and "const" in rule:
             groups["const"].append((name, shape, float(rule["const"])))
+        elif kind in (kinds or {}):
+            own = rule or kinds[kind]
+            if "const" in own:
+                groups["const"].append((name, shape, float(own["const"])))
+            else:
+                groups["normal"].append((name, shape, float(own["std"])))
         elif kind in ("conv", "deconv", "zero_out"):
             std = ZERO_OUT_STD if kind == "zero_out" else fan_std(shape, kind)
             groups["normal"].append((name, shape, rule["std"] if rule else std))
@@ -73,6 +82,8 @@ def draw_weights(spec, seed: int, device, init: dict | None = None) -> dict:
             groups["uniform"].append((name, shape, None))
         elif kind in ("bias", "zero_out_bias", "eb_factor"):
             groups["const"].append((name, shape, 0.0))
+        elif kind == "ones":
+            groups["const"].append((name, shape, 1.0))
         elif kind == "gdn_beta":
             groups["const"].append((name, shape, float(_nonneg_init(torch.ones(())))))
         elif kind == "eb_matrix":
@@ -109,3 +120,10 @@ def draw_weights(spec, seed: int, device, init: dict | None = None) -> dict:
             q = torch.tensor([-EB_INIT_SCALE, 0.0, EB_INIT_SCALE], device=device, dtype=F32)
             out[name] = q.reshape(1, 1, 3).expand(shape).contiguous()
     return {name: out[name] for name, _, _ in spec}
+
+
+def config_weights(ref, conf: dict, device) -> dict:
+    """The weights of a configuration file `conf`, drawn from its
+    `weights_seed` by the spec and kinds of its reference module `ref`."""
+    return draw_weights(ref.param_spec(ref.Cfg(conf["model"])), conf["weights_seed"], device,
+                        conf.get("init"), getattr(ref, "INIT_KINDS", None))

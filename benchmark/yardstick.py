@@ -1,6 +1,6 @@
 """The benchmark's own arithmetic: the card's peaks, the FLOPs of a round
-trip counted on the plain reference, and the bytes and operations of the
-rANS scans.
+trip counted on the configuration's plain reference, and the bytes and
+operations of the rANS scans over the stages that reference codes.
 
 Frozen here so that the program cannot move them:
   * the float32 peak by card name from `progressivecodec_tpu_torch/utils/flops.py`
@@ -16,11 +16,10 @@ Frozen here so that the program cannot move them:
 
 from __future__ import annotations
 
-import numpy as np
-import torch
-from torch.utils import flop_counter
+import sys
 
-from benchmark.reference import model as ref
+import numpy as np
+from torch.utils import flop_counter
 
 MEM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
@@ -51,43 +50,22 @@ def _count(fn) -> int:
     return int(m.get_total_flops())
 
 
-def chain_flops(cfg: ref.Cfg, batch: int, h: int, w: int, quality: float) -> int:
-    """FLOPs (convolutions and products) one request needs: the encoder's
-    analysis, hyper analysis and every entropy parameter, the decoder's
-    entropy parameters, enhancement refinement and synthesis.  Counted on
-    the reference over meta tensors: 2 x the forward, less the analysis and
-    hyper analysis the decoder skips, less the enhancement refinement and
-    synthesis the encoder skips."""
-    meta = torch.device("meta")
-    P = {n: torch.empty(s, device=meta) for n, s, _ in ref.param_spec(cfg)}
-    x = torch.empty((batch, h, w, 3), device=meta)
-    xb = torch.empty((batch, 3, h, w), device=meta)
-    med = torch.empty((cfg.N,), device=meta)
-    fwd = _count(lambda: ref.reference_request(P, cfg, x, quality, medians=med))
-    y = torch.empty((batch, 2 * cfg.d0, h // 16, w // 16), device=meta)
-    ga = _count(lambda: ref.g_a(P, cfg, xb))
-    ha = _count(lambda: ref.h_a(P, cfg, y))
-    gs = _count(lambda: ref.g_s(P, cfg, 1 if quality > 0 else 0, y[:, : cfg.d0]))
-    lrp = 0
-    if quality > 0:
-        t = torch.empty((batch, cfg.d1 - cfg.d0 + 2 * cfg.dc, h // 16, w // 16), device=meta)
-        lrp = cfg.n_prog * _count(lambda: ref.stack5(P, f"{cfg.base}lrp_transforms_prog.0", t))
-    return 2 * fwd - ga - ha - gs - lrp
+def reference_of(cfg):
+    """The reference module whose `Cfg` made `cfg`: the harness registers the
+    one it loads for a run, and the metric readers hand over only `cfg`."""
+    return sys.modules[type(cfg).__module__]
 
 
-def stage_sizes(cfg: ref.Cfg, batch: int, h: int, w: int, quality: float) -> list:
-    """Symbols per stage of the container, in coding order."""
-    hy, wy = h // 16, w // 16
-    sizes = [batch * (hy // 4) * (wy // 4) * cfg.N] + [batch * hy * wy * cfg.dc] * cfg.ns0
-    if quality > 0:
-        sizes += [cfg.n_prog * batch * hy * wy * cfg.dc] if cfg.stacked else [batch * hy * wy * cfg.dc] * cfg.n_prog
-    return sizes
+def chain_flops(cfg, batch: int, h: int, w: int, quality: float) -> int:
+    """FLOPs one request needs, as the configuration's reference counts them."""
+    return reference_of(cfg).chain_flops(cfg, batch, h, w, quality)
 
 
-def scan_work(cfg: ref.Cfg, cdf_length: np.ndarray, batch: int, h: int, w: int, quality: float,
+def scan_work(cfg, cdf_length: np.ndarray, batch: int, h: int, w: int, quality: float,
               lanes: int, payload_words: int) -> dict:
-    """Bytes and INT32 operations of one request's encode scan and decode scans."""
-    sizes = stage_sizes(cfg, batch, h, w, quality)
+    """Bytes and INT32 operations of one request's encode scan and decode
+    scans, over the stages the configuration's reference codes."""
+    sizes = reference_of(cfg).stage_sizes(cfg, batch, h, w, quality)
     cells = [-(-n // lanes) * lanes for n in sizes]
     z_table = 2 * int(cdf_length[: cfg.N].sum())
     g_table = 2 * int(cdf_length[cfg.N :].sum())
