@@ -107,9 +107,10 @@ def _rel_pos_index(wh: int, ww: int) -> np.ndarray:
     return rel.sum(-1)
 
 
-def _shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
-    """Additive (nW, ws*ws, ws*ws) mask for shifted windows: -1e9 between
-    tokens of different regions, so it stays a true mask for any logits."""
+def _shift_attn_mask(h: int, w: int, window: int, shift: int, fill: float = -1e9) -> np.ndarray:
+    """Additive (nW, ws*ws, ws*ws) mask for shifted windows: `fill` between
+    tokens of different regions; the default -1e9 stays a true mask for any
+    logits (STF's Swin blocks add Swin's -100, `layers/swin.py`)."""
     img = np.zeros((h, w))
     cnt = 0
     for hs in (slice(0, h - window), slice(h - window, h - shift), slice(h - shift, None)):
@@ -119,7 +120,7 @@ def _shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
     nh, nw = h // window, w // window
     win = img.reshape(nh, window, nw, window).transpose(0, 2, 1, 3).reshape(-1, window * window)
     diff = win[:, None, :] - win[:, :, None]
-    return np.where(diff != 0, -1e9, 0.0).astype(np.float32)
+    return np.where(diff != 0, fill, 0.0).astype(np.float32)
 
 
 class WindowAttention(nn.Module):

@@ -2,8 +2,9 @@
 
 Counterpart of `progressivecodec_tpu/models/codec_granular.py` for
 ChannelProgressiveWACNN (stacked and unrolled enhancement), its REM
-subclass (`models/rem.py`, whose cascade passes `checkpoint_rep`) and
-WACNN, on one stream or on G independent sub-streams (PCT1-G, `groups`).
+subclass (`models/rem.py`, whose cascade passes `checkpoint_rep`), and the
+single-rate WACNN and STF (`models/stf.py`, which the JAX package lacks),
+on one stream or on G independent sub-streams (PCT1-G, `groups`).
 
 The decoder re-derives every CDF index and the enhancement mask from
 sigma, so sigma must have the same bits on the encode and the decode side.
@@ -47,6 +48,7 @@ from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, check_lanes
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN, unstack_channels
+from progressivecodec_tpu_torch.models.stf import SymmetricalTransFormer
 from progressivecodec_tpu_torch.models.wacnn import WACNN
 from progressivecodec_tpu_torch.parallel.sharded_coder import (
     sharded_decode_stage,
@@ -86,9 +88,9 @@ class GranularCodec(Codec):
         self.coder_mesh, self.coder_axis = coder_mesh, coder_axis
         if lane_policy not in ("fixed", "auto"):
             raise ValueError(f"lane_policy {lane_policy!r}")
-        if not isinstance(model, (ChannelProgressiveWACNN, WACNN)):
+        if not isinstance(model, (ChannelProgressiveWACNN, WACNN, SymmetricalTransFormer)):
             raise NotImplementedError(
-                "the port's codec covers ChannelProgressiveWACNN and WACNN (models/registry.py)"
+                "the port's codec covers ChannelProgressiveWACNN, WACNN and STF (models/registry.py)"
             )
         device = resolve_device(device)
         set_deterministic()

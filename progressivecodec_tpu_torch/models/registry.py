@@ -6,11 +6,12 @@ from progressivecodec_tpu_torch.config import ModelConfig
 
 
 def get_model(cfg: ModelConfig, device=None):
-    """WACNN for "cnn", ChannelProgressiveWACNN for "channel" and its REM
-    subclass PostRateProcessedNetwork for "rate", on `device` (default
-    `cuda`)."""
+    """WACNN for "cnn", ChannelProgressiveWACNN for "channel", its REM
+    subclass PostRateProcessedNetwork for "rate" and STF, the
+    SymmetricalTransFormer, for "stf", on `device` (default `cuda`)."""
     from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
     from progressivecodec_tpu_torch.models.rem import PostRateProcessedNetwork
+    from progressivecodec_tpu_torch.models.stf import SymmetricalTransFormer
     from progressivecodec_tpu_torch.models.wacnn import WACNN
 
     if cfg.name == "cnn":
@@ -19,4 +20,6 @@ def get_model(cfg: ModelConfig, device=None):
         return ChannelProgressiveWACNN(cfg, device=device)
     if cfg.name == "rate":
         return PostRateProcessedNetwork(cfg, device=device)
-    raise KeyError(f"unknown model {cfg.name!r} (have: cnn, channel, rate)")
+    if cfg.name == "stf":
+        return SymmetricalTransFormer(cfg, device=device)
+    raise KeyError(f"unknown model {cfg.name!r} (have: cnn, channel, rate, stf)")

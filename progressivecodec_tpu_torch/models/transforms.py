@@ -8,6 +8,8 @@ an `nn.Sequential` whose indices match the reference's module tree
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.nn as nn
 
@@ -59,28 +61,35 @@ class SynthesisTransform(nn.Sequential):
 
 
 class HyperAnalysis(nn.Sequential):
-    """h_a: conv3x3 stack, two of them stride 2, GELU between."""
+    """h_a: conv3x3 stack, the third and the fifth stride 2, GELU between;
+    `widths` are the four hidden widths (WACNN's and the progressive
+    model's by default)."""
 
-    def __init__(self, cin: int, N: int = 192, device=None):
+    def __init__(self, cin: int, N: int = 192, widths: Sequence[int] = (320, 288, 256, 224),
+                 device=None):
+        w0, w1, w2, w3 = widths
         super().__init__(
-            Conv(cin, 320, 3, 1, device=device), nn.GELU(),
-            Conv(320, 288, 3, 1, device=device), nn.GELU(),
-            Conv(288, 256, 3, 2, device=device), nn.GELU(),
-            Conv(256, 224, 3, 1, device=device), nn.GELU(),
-            Conv(224, N, 3, 2, device=device),
+            Conv(cin, w0, 3, 1, device=device), nn.GELU(),
+            Conv(w0, w1, 3, 1, device=device), nn.GELU(),
+            Conv(w1, w2, 3, 2, device=device), nn.GELU(),
+            Conv(w2, w3, 3, 1, device=device), nn.GELU(),
+            Conv(w3, N, 3, 2, device=device),
         )
 
 
 class HyperSynthesis(nn.Sequential):
-    """h_mean_s / h_scale_s: conv + subpel upsampling stack."""
+    """h_mean_s / h_scale_s: conv + subpel upsampling stack; `widths` are
+    the four hidden widths."""
 
-    def __init__(self, cin: int, out: int = 320, device=None):
+    def __init__(self, cin: int, out: int = 320, widths: Sequence[int] = (192, 224, 256, 288),
+                 device=None):
+        w0, w1, w2, w3 = widths
         super().__init__(
-            Conv(cin, 192, 3, 1, device=device), nn.GELU(),
-            SubpelConv(192, 224, 2, device=device), nn.GELU(),
-            Conv(224, 256, 3, 1, device=device), nn.GELU(),
-            SubpelConv(256, 288, 2, device=device), nn.GELU(),
-            Conv(288, out, 3, 1, device=device),
+            Conv(cin, w0, 3, 1, device=device), nn.GELU(),
+            SubpelConv(w0, w1, 2, device=device), nn.GELU(),
+            Conv(w1, w2, 3, 1, device=device), nn.GELU(),
+            SubpelConv(w2, w3, 2, device=device), nn.GELU(),
+            Conv(w3, out, 3, 1, device=device),
         )
 
 
@@ -108,7 +117,8 @@ class ChARMFragments:
 
     The model provides h_a, `_hyper_params`, the banks cc_mean_transforms,
     cc_scale_transforms and lrp_transforms, and `_base_width`: the hyper
-    channels a base slice sees (d0 for the progressive model, M for WACNN)."""
+    channels a base slice sees (d0 for the progressive model, M for WACNN
+    and STF)."""
 
     def _base_slice(self, i: int, lm, ls, support: list):
         """NCHW base-slice parameter prediction -> (mu, scale, mean_support)."""

@@ -28,7 +28,45 @@ from progressivecodec_tpu_torch.models.transforms import (
 from progressivecodec_tpu_torch.utils.profiling import span
 
 
-class WACNN(ChARMFragments, nn.Module):
+class SingleRateFragments(ChARMFragments):
+    """The single-rate forward and synthesis fragment over all M // dim_chunk
+    ChARM slices, shared by WACNN and STF (`models/stf.py`).  The model
+    provides `analyze` (x (B, H, W, 3) -> y (B, h, w, M)) and `synthesize`
+    (y_hat (B, h, w, M) -> x_hat (B, H, W, 3), not clipped)."""
+
+    def _hyper_params(self, z_hat: torch.Tensor):
+        return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
+
+    def forward(self, x, *, training: bool = False, noise=None) -> dict:
+        """x (B, H, W, 3) -> {"x_hat", "likelihoods": {"y", "z"}, "y_hat"},
+        channel-last, latents rounded around their means (straight through
+        in training); x_hat is not clipped.  In training the likelihoods
+        are of the noisy latents, drawn from `noise`: z, then each slice
+        (JAX splits 2 + num_slices keys and never draws from its key 1)."""
+        if training and noise is None:
+            raise ValueError("the training forward needs a noise source")
+        _, _, z_lik, _, y_hat, y_lik, _, _ = self._forward_base(
+            self.analyze(x), self.num_slices, self.num_slices, training=training, noise=noise
+        )
+        y_hat = torch.cat(y_hat, dim=-1)
+        return {"x_hat": self.synthesize(y_hat),
+                "likelihoods": {"y": torch.cat(y_lik, dim=-1), "z": z_lik}, "y_hat": y_hat}
+
+    def forward_single_quality(self, x, quality: float = 0.0, mask_pol=None, *,
+                               training: bool = False, noise=None) -> dict:
+        """The forward with x_hat clipped to [0, 1]; a single-rate model,
+        so the quality is ignored."""
+        out = self.forward(x, training=training, noise=noise)
+        out["x_hat"] = torch.clamp(out["x_hat"], 0.0, 1.0)
+        return out
+
+    @span("frag:codec_synth")
+    def codec_synth(self, which: int, y_hat):
+        """One synthesis whatever `which` asks."""
+        return torch.clamp(self.synthesize(y_hat), 0.0, 1.0)
+
+
+class WACNN(SingleRateFragments, nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         device = resolve_device(device)
@@ -52,33 +90,6 @@ class WACNN(ChARMFragments, nn.Module):
         """x (B, H, W, 3) -> y (B, H/16, W/16, M)."""
         return nhwc(self.g_a(nchw(x)))
 
-    def _hyper_params(self, z_hat: torch.Tensor):
-        return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
-
-    def forward(self, x, *, training: bool = False, noise=None) -> dict:
-        """x (B, H, W, 3) -> {"x_hat", "likelihoods": {"y", "z"}, "y_hat"},
-        channel-last, latents rounded around their means (straight through
-        in training); x_hat is not clipped.  In training the likelihoods
-        are of the noisy latents, drawn from `noise`: z, then each slice
-        (JAX splits 2 + num_slices keys and never draws from its key 1)."""
-        if training and noise is None:
-            raise ValueError("the training forward needs a noise source")
-        _, _, z_lik, _, y_hat, y_lik, _, _ = self._forward_base(
-            self.analyze(x), self.num_slices, self.num_slices, training=training, noise=noise
-        )
-        y_hat = torch.cat(y_hat, dim=-1)
-        return {"x_hat": nhwc(self.g_s(nchw(y_hat))),
-                "likelihoods": {"y": torch.cat(y_lik, dim=-1), "z": z_lik}, "y_hat": y_hat}
-
-    def forward_single_quality(self, x, quality: float = 0.0, mask_pol=None, *,
-                               training: bool = False, noise=None) -> dict:
-        """The forward with x_hat clipped to [0, 1]; a single-rate model,
-        so the quality is ignored."""
-        out = self.forward(x, training=training, noise=noise)
-        out["x_hat"] = torch.clamp(out["x_hat"], 0.0, 1.0)
-        return out
-
-    @span("frag:codec_synth")
-    def codec_synth(self, which: int, y_hat):
-        """One synthesis whatever `which` asks."""
-        return nhwc(torch.clamp(self.g_s(nchw(y_hat)), 0.0, 1.0))
+    def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
+        """y_hat (B, H/16, W/16, M) -> x_hat (B, H, W, 3), not clipped."""
+        return nhwc(self.g_s(nchw(y_hat)))

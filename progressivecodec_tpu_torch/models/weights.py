@@ -19,7 +19,8 @@ with `load_state_dict(strict=True)`.  A reference checkpoint (`.pth`) loads
 the same way through `load_pth`: it unwraps `{"state_dict": ...}`, strips
 DataParallel's `module.` and drops, by name, the buffers of the reference's
 CompressAI modules that the port does not hold (`REFERENCE_BUFFERS`), all
-of which `Codec.update()` or the configuration determine.
+of which `Codec.update()` or the configuration determine (the window
+attention's `relative_position_index` follows from the window size).
 `from_jax_module` maps the small modules whose port children carry JAX's
 names (the MaskEstractor, the postnets).
 """
@@ -320,6 +321,7 @@ REFERENCE_BUFFERS = (
     "scale_table", "scale_bound", "lower_bound_scale.bound",
     "beta_reparam.pedestal", "beta_reparam.lower_bound.bound",
     "gamma_reparam.pedestal", "gamma_reparam.lower_bound.bound",
+    "relative_position_index",
 )
 
 
