@@ -26,6 +26,13 @@ each stage is one launch of the grouped decode kernel.  With a
 those launches for its own lane group: an encode launch over its kt lanes,
 and per stage a grouped decode launch of one CTA.
 
+The unrolled enhancement's quality-independent networks (each slice's
+parameter networks, its refinement banks, its reconstruction tail) run as
+CUDA graphs on the card, captured on a latent shape's second loop and
+replayed after (`models/graphs.py`, `self.graphs`); the masks, indexes and
+the coder stay eager.  Weights loaded anew (`load_state_dict`) or tables
+built anew (`update`) drop the graphs.
+
 Each public call is a `codec:*` span (`utils/profiling.py`); inside it the
 codec's own steps between the model's fragments are `glue:*` spans and the
 points where the host waits on the card `sync:*` spans.  `compress` counts
@@ -34,6 +41,8 @@ included) and escape words (`words:escape`).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -46,6 +55,7 @@ from progressivecodec_tpu_torch.coder.rans_device import (
 )
 from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, check_lanes
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
+from progressivecodec_tpu_torch.models import graphs
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN, unstack_channels
 from progressivecodec_tpu_torch.models.stf import SymmetricalTransFormer
@@ -103,6 +113,16 @@ class GranularCodec(Codec):
         self._scale_table = torch.as_tensor(
             cfg.scale_table.values().astype(np.float32), device=device
         )
+        self.graphs = graphs.LoopGraphs()
+        codec = weakref.ref(self)
+        model.register_load_state_dict_post_hook(lambda module, keys: _drop_graphs(codec))
+
+    def update(self, force: bool = False):
+        """As `Codec.update`; building the tables anew (the weights changed)
+        drops the graphs of the unrolled enhancement too."""
+        if force or self._tables is None:
+            self.graphs.clear()
+        return super().update(force)
 
     # ---------- lane policy ----------
 
@@ -175,21 +195,33 @@ class GranularCodec(Codec):
     def _prog_loop(self, quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map,
                    checkpoint_rep, vals_fn):
         """Run the unrolled enhancement slices; vals_fn(i, mu, mask, keep, idx)
-        supplies flat integer values.  Returns the reconstructed slices."""
+        supplies flat integer values.  Returns the reconstructed enhancement
+        latent (B, h, w, num_prog_slices * dim_chunk), a fresh tensor.
+
+        The slices' quality-independent networks run as CUDA graphs where
+        `self.graphs` engages (`models/graphs.py`); the request's constant
+        inputs are staged into the graphs' buffers here, once per loop."""
         cfg, m = self.cfg, self.model
+        n = cfg.num_prog_slices
+        units = self.graphs.units(m, lm)
+        lm, ls = units.stage("lm", [lm])[0], units.stage("ls", [ls])[0]
+        y_hat_base = units.stage("base", y_hat_base)
+        mu_b, std_b = units.stage("mu_b", mu_list[:n]), units.stage("std_b", std_list[:n])
+        anchors = units.anchors(m, n, y_hat_base, checkpoint_rep)
         prog_slices, mu_total, std_total = [], [], []
-        for i in range(cfg.num_prog_slices):
-            cps = None if checkpoint_rep is None else m._hook_anchor(i, y_hat_base, checkpoint_rep)
-            mu, scale, mut, mask, keep, idx, ms = m.codec_prog_params(
-                i, quality, mask_pol, lm, ls, tuple(y_hat_base), tuple(mu_total),
-                tuple(std_total), tuple(prog_slices), mu_list[i], std_list[i], cps,
-                self._scale_table, m._map_slice(cust_map, i),
-            )
-            std_total.append(scale if cfg.support_std else mut)
-            mu_total.append(mut)
-            vals = vals_fn(i, mu, mask, keep, idx)
-            prog_slices.append(m.codec_prog_recon(i, ms, mu, vals, keep, y_hat_base[i]))
-        return prog_slices
+        with graphs.active(units):
+            for i in range(n):
+                mu, scale, mut, mask, keep, idx, ms = m.codec_prog_params(
+                    i, quality, mask_pol, lm, ls, tuple(y_hat_base), tuple(mu_total),
+                    tuple(std_total), tuple(prog_slices), mu_b[i], std_b[i], anchors[i],
+                    self._scale_table, m._map_slice(cust_map, i),
+                )
+                std_total.append(scale if cfg.support_std else mut)
+                mu_total.append(mut)
+                vals = vals_fn(i, mu, mask, keep, idx)
+                prog_slices.append(m.codec_prog_recon(i, ms, mu, vals, keep, y_hat_base[i]))
+        with span("glue:cat"):
+            return torch.cat(prog_slices, dim=-1)
 
     # ---------- public API ----------
 
@@ -279,10 +311,8 @@ class GranularCodec(Codec):
                     stages.append((sym, (idx + row0).reshape(-1), keep.reshape(-1)))
                     return sym
 
-                prog_slices = self._prog_loop(quality, mask_pol, lm, ls, y_hat_base, mu_list,
-                                              std_list, cust_map, checkpoint_rep, prog_vals)
-                with span("glue:cat"):
-                    y_hat_prog = torch.cat(prog_slices, dim=-1)
+                y_hat_prog = self._prog_loop(quality, mask_pol, lm, ls, y_hat_base, mu_list,
+                                             std_list, cust_map, checkpoint_rep, prog_vals)
 
         hz, wz = z.shape[1], z.shape[2]
         lanes = self._lanes_for_stream(int(x_shape[0]), (hz, wz), quality)
@@ -456,15 +486,20 @@ class GranularCodec(Codec):
             vals = dec_stage(idx, keep, row0)
             y_hat = unstack_channels(m.codec_prog_recon_stacked(ms, mu_st, vals, keep, base_stack))
         else:
-            prog_slices = self._prog_loop(
+            y_hat = self._prog_loop(
                 quality, mask_pol, lm, ls, y_hat_base, mu_list, std_list, cust_map, checkpoint_rep,
                 lambda i, mu, mask, keep, idx: dec_stage(idx, keep, row0),
             )
-            with span("glue:cat"):
-                y_hat = torch.cat(prog_slices, dim=-1)
         with span("sync:stream_ok"):
             ok = bool(rans_device.stream_ok(dec[0]))
         return {"y_hat": y_hat, "stream_ok": ok}
+
+
+def _drop_graphs(codec_ref) -> None:
+    """The model's weights were loaded anew: its codec's graphs go."""
+    codec = codec_ref()
+    if codec is not None:
+        codec.graphs.clear()
 
 
 def make_codec(model, lanes: int = DEFAULT_LANES, device=None, groups: int = 1) -> GranularCodec:

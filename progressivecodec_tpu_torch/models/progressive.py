@@ -20,8 +20,11 @@ noise-quantised likelihoods, the noise drawn from an explicit source
 (`ops/noise.py`) in JAX's order, and straight-through rounding.
 `forward_single_quality` is the forward at one quality, with the
 likelihoods (eval, or training with noise).  `_refine_prog_params` is the
-hook REM (`models/rem.py`) overrides; `checkpoint_rep` anchors it in place
-of the base slices.
+hook REM (`models/rem.py`) overrides, with `_refine_units`; `checkpoint_rep`
+anchors it in place of the base slices.  The unrolled fragments
+(`codec_prog_params`, `codec_prog_recon`) run their quality-independent
+networks as units of `models/graphs.py`: CUDA graphs inside the codec's
+loop on the card, plain calls everywhere else.
 
 Internals are NCHW `nn.Module`s.  The public methods (`analyze`,
 `forward_single_quality` and the `codec_*` fragments the granular codec
@@ -46,6 +49,7 @@ from progressivecodec_tpu_torch.layers.masking import (
 )
 from progressivecodec_tpu_torch.layers.masking_learnable import LearnableMaskStack
 from progressivecodec_tpu_torch.layers.unet import refine_net
+from progressivecodec_tpu_torch.models import graphs
 from progressivecodec_tpu_torch.models.transforms import (
     AnalysisTransform,
     ChARMFragments,
@@ -246,6 +250,12 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         """Hook for REM-style (mu, scale) refinement of enhancement slices;
         the identity here."""
         return mu, scale
+
+    def _refine_units(self, i, mu, scale, mu_b, scale_b, y_b_hat) -> list:
+        """The hook's quality-independent networks for slice i, every one it
+        may run at some quality, as (key, fn, args) units of
+        `models/graphs.py`; none here."""
+        return []
 
     def _hook_anchor(self, i: int, y_hat_base: list, checkpoint_rep):
         """The refinement hook's anchor for slice i: the slice's channels of
@@ -462,10 +472,11 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
         index or keep decision -> (mu, scale, mut, mask, keep, idx,
         mean_support), channel-last.  `checkpoint_slice` anchors the
         refinement hook in place of the base slice when given."""
-        mu, scale, mut, ms = self._prog_slice_nhwc(
-            i, lm, ls, y_hat_base, mu_total, std_total, prog_slices
-        )
+        units = graphs.units()
+        mu, scale, mut, ms = units.run(("params", i), self._prog_slice_nhwc, i, lm, ls,
+                                       y_hat_base, mu_total, std_total, prog_slices)
         anchor = checkpoint_slice if checkpoint_slice is not None else y_hat_base[i]
+        units.prepare(lambda: self._refine_units(i, mu, scale, mu_b_i, std_b_i, anchor))
         mu, scale = self._refine_prog_params(i, quality, mu, scale, mu_b_i, std_b_i, anchor, mask_pol)
         mask = self._mask_for(scale, quality, mask_pol, i, y_hat_base[i], cust_map_slice)
         keep = torch.round(mask) > 0.5
@@ -475,6 +486,9 @@ class ChannelProgressiveWACNN(ChARMFragments, nn.Module):
     @span("frag:codec_prog_recon")
     def codec_prog_recon(self, i: int, ms, mu, vals, keep, y_b_i):
         """Reconstruction of unrolled enhancement slice i, merged into its base."""
+        return graphs.units().run(("recon", i), self._prog_recon, i, ms, mu, vals, keep, y_b_i)
+
+    def _prog_recon(self, i: int, ms, mu, vals, keep, y_b_i):
         zero = torch.zeros((), dtype=torch.float32, device=mu.device)
         y0 = torch.where(keep, vals.reshape(mu.shape).to(torch.float32), zero) + mu
         return self._prog_finish(i, ms, y0, y_b_i)

@@ -5,7 +5,9 @@ plus one LatentRateReduction bank per (checkpoint interval, base slice):
 between the checkpoint qualities `cfg.check_levels` (default 0.01, 0.25,
 1.75) a bank refines the predicted sigma of an enhancement slice, gated by
 the attention mask mask(q) - mask(q_bar), where q_bar is the checkpoint
-below q.  It overrides the progressive model's `_refine_prog_params` hook,
+below q.  It overrides the progressive model's `_refine_prog_params` hook
+(and `_refine_units`, its banks as CUDA-graph units of `models/graphs.py`:
+the attention mask stays eager, each bank is a graph in the codec's loop),
 so the forwards and the codec fragments are inherited; the model is
 always unrolled (`uses_stacked_prog` is False for "rate").
 
@@ -35,6 +37,7 @@ from progressivecodec_tpu_torch.config import ModelConfig
 from progressivecodec_tpu_torch.device import resolve_device
 from progressivecodec_tpu_torch.layers.blocks import Conv
 from progressivecodec_tpu_torch.layers.masking import apply_mask_noise, channel_mask
+from progressivecodec_tpu_torch.models import graphs
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
 from progressivecodec_tpu_torch.models.transforms import nchw, nhwc
 from progressivecodec_tpu_torch.utils.profiling import span
@@ -175,15 +178,28 @@ class PostRateProcessedNetwork(ChannelProgressiveWACNN):
         # the attention mask ranks the unrefined sigma; straight through in training
         att = apply_mask_noise(channel_mask(scale, pr=quality, **mk)
                                - channel_mask(scale, pr=q_bar, **mk), training)
+        k = _interval_index(quality, cfg.check_levels)
+        out = graphs.units().run(("bank", k, i), self._bank, k, i, mu, scale, mu_b, scale_b,
+                                 y_b_hat, att)
+        if self.mu_std:
+            return torch.chunk(out, 2, dim=-1)
+        return mu, out
+
+    def _bank(self, k, i, mu, scale, mu_b, scale_b, y_b_hat, att):
+        """Bank k of slice i on the attention mask att: the refined scale, or
+        [mu, scale] with mu_std."""
         if self.mu_std:
             att = torch.cat([att, att], dim=-1)
         params_base = torch.cat([mu_b, scale_b], dim=-1)
         params_enh = torch.cat([mu, scale], dim=-1) if self.mu_std else scale
-        k = _interval_index(quality, cfg.check_levels)
-        out = self.post_latent[k][i](y_b_hat, params_base, params_enh, att)
-        if self.mu_std:
-            return torch.chunk(out, 2, dim=-1)
-        return mu, out
+        return self.post_latent[k][i](y_b_hat, params_base, params_enh, att)
+
+    def _refine_units(self, i, mu, scale, mu_b, scale_b, y_b_hat) -> list:
+        """Slice i's bank of every checkpoint interval, on a placeholder
+        attention mask."""
+        att = torch.zeros_like(scale)
+        return [(("bank", k, i), self._bank, (k, i, mu, scale, mu_b, scale_b, y_b_hat, att))
+                for k in range(len(self.post_latent))]
 
 
 def _to_reference_names(module, state_dict, prefix, local_metadata) -> None:

@@ -18,7 +18,8 @@ codec, on the CPU at TINY (N=32, M=64, dim_chunk 8, division (32, 64)),
     `sync:*` span, in both configurations at q in {0, 5, 10}.
 On the card (marked `cuda`): in a round trip at q = 5 under
 `torch.cuda.set_sync_debug_mode("warn")`, every synchronizing call torch
-reports is made inside one of those four spans.
+reports is made inside one of those four spans; REM's round trip there
+replays its unrolled enhancement as CUDA graphs (`models/graphs.py`).
 
 This file imports no JAX, so the card runs it:
 `python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_tracing.py`.
@@ -219,8 +220,9 @@ def test_containers_equal_with_spans_on(codecs, name):
 def test_every_sync_lies_in_a_sync_span(cuda_device, name):
     codec = tiny_codec(name, cuda_device)
     x = image(7).to(cuda_device)
-    round_trip(codec, x, 5.0)  # builds the kernels and the decode plans
+    round_trip(codec, x, 5.0)  # builds the kernels, the decode plans and REM's graphs
     torch.cuda.synchronize()
+    before = profiling.totals()
     seen = []
 
     def show(message, category, filename, lineno, file=None, line=None):
@@ -240,3 +242,7 @@ def test_every_sync_lies_in_a_sync_span(cuda_device, name):
     assert ok and syncs, seen
     outside = [st for _, st in syncs if not any(n in CONTAINER_SYNCS for n in st)]
     assert not outside, outside
+    # REM's unrolled enhancement ran as CUDA graphs, and they wait on nothing
+    after = profiling.totals()
+    replays, eager = (after.get(k, 0) - before.get(k, 0) for k in ("graph:replay", "graph:eager"))
+    assert (replays > 0 and eager == 0) if name == "rate" else replays == eager == 0
