@@ -19,12 +19,12 @@ printing a result:
      lane renormalising in every row so the stream ring wraps, K in
      {32, 64, 1024}, stages of P=0 and P=1 rows, symbols drawn from each
      row's distribution, the batch-8 grid of 15,648 rows, the global-table
-     path); then the PCT1-G grouped decode kernel on the flagship-table
-     stages at (K, G) = (512, 4), (512, 16) and (512, 2) and on smaller
-     stages at (32, 4), (1024, 2), (64, 64) and (96, 3), escapes included,
-     and the decode launches' split into prologue and rows on those stages
-     at G in {1, 2, 4, 16} (`scan_split`: device times of one-row and
-     full launches queued behind a sleep kernel);
+     path); then the PCT1-G decode (the grouped entry) on the
+     flagship-table stages at (K, G) = (512, 4), (512, 16) and (512, 2) and
+     on smaller stages at (32, 4), (1024, 2), (64, 64) and (96, 3), escapes
+     included, and the decode launches' split into prologue and rows on
+     those stages at G in {1, 2, 4, 16} (`scan_split`: device times of
+     one-row and full launches queued behind a sleep kernel);
   4. the main paths at full width, 768x512 seeded images, seeded random
      weights, compress -> serialize -> deserialize -> decompress: the
      flagship ModelConfig() at q in {0, 5, 10} (batch 1) and q=10 (batch 8)
@@ -36,7 +36,7 @@ printing a result:
      q=0.  Each decoded y_hat must equal the encoder's simulated y_hat bit
      for bit, with stream_ok, and the launch counters, zeroed before each
      round trip, must show one encode launch and one decode launch per
-     stage, on the grouped kernel when groups > 1;
+     stage, over every group;
   5. REM, ModelConfig(name="rate") (N=192, M=640, unrolled, 3 checkpoint
      levels x 10 LatentRateReduction banks), with every bank's zero_out
      weight drawn from N(0, 0.02^2) (seed SEED + 5; zero at init, where
@@ -92,7 +92,7 @@ printing a result:
      first.  9.1, the sharded coder: phase 3's 12 flagship-table stages at
      K=512, G=2 (kt=256) and three smaller stages at K=32, G=2 (kt=16, the
      encode kernel's padded block), escapes included: each rank's streams
-     equal the single-process `encode_stages_grouped(groups=2)` byte for
+     equal the single-process `encode_stages(..., groups=2)` byte for
      byte, the sharded decode gives the symbols exactly with stream_ok;
      CUDA-event ms of each rank's encode launch and decode launches, host
      ms of its gathers.  9.2, the tiled codec at 2048x1024
@@ -136,28 +136,23 @@ printing a result:
      init, frozen base unchanged, banks moved), `rem_demo` (20 base and 20
      bank steps) and `bd_trajectory` on phase 7's metrics.jsonl; the
      launches of each tool, zeroed before it and read after it.
- 12. the bench, `python -m progressivecodec_tpu_torch.bench`, in a process
-     of its own (the flagship at 768x512, seeded weights; each of the
-     (quality, batch) pairs (10, 8), (10, 1) and (5, 8) in a fresh probe
-     process): exit 0, 0 < mfu < 1, every chain's stream_ok, the decoded
-     y_hat exact, and per chain one encode and 12 decode launches, counted
-     in the probe; its last line and each probe's record are logged.
 `python3 chip_smoke.py --ab [--lanes K,...] OTHER_CHECKOUT...` runs only
-`scan_split`, on other checkouts of the repo and on this one, in separate
-processes ordered others, this, this, others reversed (`ab_split`): at the
-flagship's K=512 for G in {1, 2, 4, 16}, or the single stream at each K
-given.
+`scan_split`, each checkout's own, on other checkouts of the repo and on
+this one, in separate processes ordered others, this, this, others
+reversed (`ab_split`): at the flagship's K=512 for G in {1, 2, 4, 16}, or
+the single stream at each K given.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 `kernels` JSON object, whose encode and decode entries carry
 `train_eval_launches` (phase 7's real-codec evals), `cust_map_launches`
-(phase 8's map-ranked round trip) and `rd_sweep_launches`; the first three
-entries carry `sharded_launches`, the launches phase 9's ranks made, and
-`tools_launches`, phase 11's per tool; the first two `bench_launches_per_chain`,
-phase 12's per chain of the (10, 8) probe.  The
-spanning decode's two instances follow, `rans_decode_scan_cluster` (timed
-at K=2048, its launches from the K=2048 round trip) and
-`rans_decode_scan_grid` (K=16384).
+(phase 8's map-ranked round trip), `rd_sweep_launches`, `sharded_launches`
+(the launches phase 9's ranks made) and `tools_launches` (phase 11's per
+tool).  Each decode entry names the kernel entry it measures
+(`rans_cuda.decode_entry`): "stream" (the flagship's K=512), "grouped"
+(K=512, G=4, its launches from the groups=4 round trip), then the
+spanning instances, "cluster" (timed at K=2048, its launches from the
+K=2048 round trip) and "grid" (K=16384); every decode launch counts as
+`launch:rans_decode_scan`.
 """
 
 from __future__ import annotations
@@ -295,14 +290,14 @@ def decode_wrapper_floor(dev, passes=9, lanes=LANES):
     from progressivecodec_tpu_torch.coder import rans_device
 
     _, t, _ = flagship_tables(dev)
-    stream = torch.zeros(2 * lanes, dtype=torch.int16, device=dev)
-    dec0 = rans_device.decoder_init(stream, lanes)
+    streams = torch.zeros((1, 2 * lanes), dtype=torch.int16, device=dev)
+    dec0 = rans_device.decoder_init(streams, lanes)
     ig = torch.zeros((0, lanes), dtype=torch.int32, device=dev)
     kg = torch.zeros((0, lanes), dtype=torch.uint8, device=dev)
 
     def run():
         for _ in range(12):
-            rans_device.decode_stage_scan(dec0, stream, ig, kg, t, lanes)
+            rans_device.decode_stage_scan(dec0, streams, ig, kg, t, lanes)
 
     return [cuda_time_ms(run, reps=20) for _ in range(passes)]
 
@@ -340,8 +335,8 @@ def queued_ms(fn, reps=7) -> float:
 def scan_split(tables, t, row0, dev, groups=(1, 2, 4, 16), lanes=LANES):
     """The decode launches' split into prologue and rows, on the 12
     flagship-table stages (seed SEED + 7, as the grouped flagship case) at
-    K=`lanes`: for each G (1: the single stream's entry, else the grouped
-    one) the device ms of the 12 stages' zero-row launches (the launch: the
+    K=`lanes`: for each G (1: the one-stream entry, else the grouped one,
+    `rans_cuda.decode_entry`) the device ms of the 12 stages' zero-row launches (the launch: the
     kernel returns before its prologue), one-row launches (the launch, the
     prologue and one row) and full launches, each by `queued_ms` with every
     stage's input state precomputed, and the ms of the 12 stages as a
@@ -360,21 +355,14 @@ def scan_split(tables, t, row0, dev, groups=(1, 2, 4, 16), lanes=LANES):
     cluster_of = getattr(rans_cuda, "decode_cluster", None)  # None: a checkout without clusters
     out = {}
     for g in groups:
+        streams, n_words, _, _ = rans_device.encode_stages(stages, t, lanes, g)
         if g == 1:
-            stream, n_words, _, _ = rans_device.encode_stages(stages, t, lanes)
-            stream = stream[: int(n_words)]
-            dec = rans_device.decoder_init(stream, lanes)
-            state = (dec.states, dec.offset)
+            streams = streams[:, : int(n_words)]
+        dec = rans_device.decoder_init(streams, lanes)
+        state = (dec.states, dec.offsets)
 
-            def launch(s, o, ig, kg, rows, stream=stream):
-                return rans_cuda.rans_decode_scan(s, o, stream, ig, kg, t.dec_sf, t.compact, rows)
-        else:
-            streams, n_words, _, _ = rans_device.encode_stages_grouped(stages, t, lanes, g)
-            dec = rans_device.grouped_decoder_init(streams, lanes, g)
-            state = (dec.states, dec.offsets)
-
-            def launch(s, o, ig, kg, rows, streams=streams):
-                return rans_cuda.rans_decode_scan_grouped(s, o, streams, ig, kg, t.dec_sf, t.compact, rows)
+        def launch(s, o, ig, kg, rows, streams=streams):
+            return rans_cuda.rans_decode_scan(s, o, streams, ig, kg, t.dec_sf, t.compact, rows)
         ins = []
         for (ig, kg), rows in zip(grids, rows_of):
             ins.append(state)
@@ -483,9 +471,9 @@ def check_kernels(codec, dev):
     enc_ms = cuda_time_ms(lambda: rans_cuda.rans_encode_scan(sf_rev, kp_rev), reps=20)
     enc_plain_ms = cuda_time_ms(lambda: rans_cuda.rans_encode_scan_plain(sf_rev, kp_rev),
                                 reps=2, warmup=1)
-    stream, n_words, esc, n_esc = rans_device.encode_finalize(*got, esc_flags, sym, LANES)
-    stream = stream[: int(n_words)]
-    esc = torch.cat([esc[: 2 * int(n_esc)], torch.zeros(2, dtype=torch.int16, device=dev)])
+    streams, n_words, escs, n_esc = rans_device.encode_finalize(*got, esc_flags, sym, LANES)
+    streams = streams[:, : int(n_words)]
+    escs = torch.nn.functional.pad(escs[:, : 2 * int(n_esc)], (0, 2))
     log(f"  flagship-table stream: {int(n_words)} words, {int(n_esc)} escapes")
 
     grids = []
@@ -493,37 +481,38 @@ def check_kernels(codec, dev):
         grids.append((rans_device._pad_to_grid(s_idx, LANES),
                       rans_device._pad_to_grid(s_keep.to(torch.uint8), LANES)))
     rows_of = stage_rows(codec, len(grids))
+    dec_sf = rans_device.twin_dec_sf(codec._tables, dev)
     dec_err = 0
-    dec0 = rans_device.decoder_init(stream, LANES)
+    dec0 = rans_device.decoder_init(streams, LANES)
     dec = dec0
     kept = 0
     for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dev_stages, grids, rows_of):
-        got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf,
+        got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, t.dec_sf,
                                          t.compact, rows)
         torch.cuda.synchronize()
-        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
+        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg, dec_sf)
         err = max_abs_err(got, want)
         require(err == 0, f"decode kernel != plain twin: max|d| {err}")
         dec_err = max(dec_err, err)
         esc_off, vals = rans_device.decode_stage_values(
-            dec.esc_offset, got[2], esc, s_idx, s_keep, t, LANES
+            dec.esc_offsets, got[2], escs, s_idx, s_keep, t, LANES
         )
         require(torch.equal(vals, torch.where(s_keep, s_sym, 0)), "decoded values != symbols")
         dec = rans_device.DecoderState(got[0], got[1], esc_off)
         kept += int(s_keep.sum())
     require(bool(rans_device.stream_ok(dec)), "flagship-table stream: stream_ok is False")
-    require(int(dec.offset) == int(n_words), "decoder did not consume the whole payload")
+    require(int(dec.offsets) == int(n_words), "decoder did not consume the whole payload")
     log(f"  decode scan, 12 flagship-table stages: kernel == plain twin, values exact, stream_ok")
 
     def dec_all(plain):
         d = dec0
         for (ig, kg), rows in zip(grids, rows_of):
             if plain:
-                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offset, stream, ig, kg, t.dec_sf)
+                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offsets, streams, ig, kg, dec_sf)
             else:
-                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
+                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offsets, streams, ig, kg, t.dec_sf,
                                                      t.compact, rows)
-            d = rans_device.DecoderState(s, o, d.esc_offset)
+            d = rans_device.DecoderState(s, o, d.esc_offsets)
 
     dec_ms = cuda_time_ms(lambda: dec_all(False), reps=10)
     dec_plain_ms = cuda_time_ms(lambda: dec_all(True), reps=1, warmup=1)
@@ -544,7 +533,8 @@ def check_kernels(codec, dev):
     cpu_t = rans_device.DeviceTables.from_tables(codec._tables, "cpu")
     ref = rans_device.encode_stages(small, cpu_t, 64)
     out = rans_device.encode_stages([tuple(a.to(dev) for a in s) for s in small], t, 64)
-    require(int(ref[1]) == int(out[1]) and torch.equal(ref[0][: int(ref[1])], out[0][: int(out[1])].cpu()),
+    require(int(ref[1]) == int(out[1])
+            and torch.equal(ref[0][0, : int(ref[1])], out[0][0, : int(out[1])].cpu()),
             "small stream: card != CPU reference")
     log("  small stream (3 stages, 64 lanes): card kernels == CPU plain twins, byte for byte")
 
@@ -565,65 +555,73 @@ def check_kernels(codec, dev):
     return results
 
 
-def decode_case(label, codec, stages, rows_of, lanes, dev, smem_cap=None, timed=False):
-    """Code `stages` as one stream of K=`lanes` on the card (the encode
-    kernel over whole warps against its twin), then decode every stage with
-    the decode kernel and its twin, bit for bit, with the decoded values
-    exact and stream_ok.  Returns the rows, the kernel ms of all stages as a
-    chain (CUDA events, host included), the twin's when `timed`, the largest
-    |kernel - twin| and the stages' bound."""
+def decode_case(label, codec, stages, rows_of, lanes, dev, groups=1, smem_cap=None, timed=False):
+    """Code `stages` as G = `groups` sub-streams of K=`lanes` lanes on the
+    card (the encode kernel over whole warps against its twin, then each
+    group's compaction), then decode every stage with the decode kernel and
+    its twin, bit for bit, with the decoded values exact and stream_ok.
+    Returns the rows, the payload words consumed, the kernel ms of all
+    stages as a chain (CUDA events, host included), the twin's when
+    `timed`, the largest |kernel - twin| and the stages' bound."""
     from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
 
     t = codec.device_tables
+    dec_sf = rans_device.twin_dec_sf(codec._tables, dev)
     dstages = [tuple(a.to(dev) for a in s) for s in stages]
     sf_rev, kp_rev, esc_flags, sym = rans_device.encode_prepare(dstages, t, lanes)
     enc = rans_device.encode_scan_rev(sf_rev, kp_rev, lanes)
     torch.cuda.synchronize()
     err = max_abs_err(enc, rans_cuda.rans_encode_scan_plain(sf_rev, kp_rev))
     require(err == 0, f"{label}: encode kernel != plain twin: max|d| {err}")
-    stream, n_words, esc, n_esc = rans_device.encode_finalize(*enc, esc_flags, sym, lanes)
-    stream = stream[: int(n_words)]
-    esc = torch.nn.functional.pad(esc[: 2 * int(n_esc)], (0, 2))
+    streams, n_words, escs, n_escs = rans_device.encode_finalize(*enc, esc_flags, sym, lanes, groups)
+    if groups == 1:
+        streams = streams[:, : int(n_words)]
+    escs = torch.nn.functional.pad(escs, (0, 2))
     grids = [(rans_device._pad_to_grid(s_idx, lanes),
               rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes)) for _, s_idx, s_keep in dstages]
-    dec0 = rans_device.decoder_init(stream, lanes)
+    dec0 = rans_device.decoder_init(streams, lanes)
     dec = dec0
     for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dstages, grids, rows_of):
-        got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf,
+        got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, t.dec_sf,
                                          t.compact, rows, smem_cap=smem_cap)
         torch.cuda.synchronize()
-        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
+        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg, dec_sf)
         err = max_abs_err(got, want)
         require(err == 0, f"{label}: decode kernel != plain twin: max|d| {err}")
-        esc_off, vals = rans_device.decode_stage_values(dec.esc_offset, got[2], esc, s_idx, s_keep, t, lanes)
+        esc_off, vals = rans_device.decode_stage_values(dec.esc_offsets, got[2], escs, s_idx, s_keep, t, lanes)
         require(torch.equal(vals, torch.where(s_keep, s_sym, 0)), f"{label}: decoded values != symbols")
         dec = rans_device.DecoderState(got[0], got[1], esc_off)
-    require(bool(rans_device.stream_ok(dec)) and int(dec.offset) == int(n_words),
+    require(bool(rans_device.stream_ok(dec)) and torch.equal(dec.offsets, n_words.to(torch.int32)),
             f"{label}: stream_ok is False")
 
     def run(plain):
         d = dec0
         for (ig, kg), rows in zip(grids, rows_of):
             if plain:
-                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offset, stream, ig, kg, t.dec_sf)
+                s, o, _ = rans_cuda.rans_decode_scan_plain(d.states, d.offsets, streams, ig, kg, dec_sf)
             else:
-                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offset, stream, ig, kg, t.dec_sf,
+                s, o, _ = rans_cuda.rans_decode_scan(d.states, d.offsets, streams, ig, kg, t.dec_sf,
                                                      t.compact, rows, smem_cap=smem_cap)
-            d = rans_device.DecoderState(s, o, d.esc_offset)
+            d = rans_device.DecoderState(s, o, d.esc_offsets)
 
     n_rows = sum(ig.shape[0] for ig, _ in grids)
+    consumed = int(n_words.sum()) - 2 * lanes
     ms = cuda_time_ms(lambda: run(False), reps=10 if timed else 3, warmup=1)
     plain_ms = cuda_time_ms(lambda: run(True), reps=1, warmup=0) if timed else None
-    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], lanes, smem_cap or rans_cuda._smem_optin(0))
-    bound_ms, bound_by = decode_bound(t, rows_of, n_rows * lanes, int(n_words) - 2 * lanes, lanes)
-    route = "a grid" if plan.grid else "a cluster" if plan.ctas > 1 else "one CTA"
+    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], lanes // groups, smem_cap or rans_cuda._smem_optin(0))
+    bound_ms, bound_by = decode_bound(t, rows_of, n_rows * lanes, consumed, lanes, groups)
+    entry = rans_cuda.decode_entry(groups, lanes, plan.ctas)
+    cluster = (f" in clusters of {rans_cuda.decode_cluster(groups)}"
+               if entry == "grouped" and plan.table_in_smem else "")
     per_row = f"{1e6 * ms / n_rows:.1f} ns per row" if n_rows else "no rows"
-    log(f"  decode case {label}: P={n_rows} K={lanes}, {int(n_words)} words, {int(n_esc)} escapes: encode and "
-        f"decode kernels == plain twins, values exact, stream_ok; {plan.ctas} CTA(s) of {plan.cta_lanes} "
-        f"threads as {route}, ring {plan.ring_words} words, table in shared memory {plan.table_in_smem} "
+    log(f"  decode case {label}: P={n_rows} K={lanes} G={groups} (kt={lanes // groups}), "
+        f"{int(n_words.sum())} words, {int(n_escs.sum())} escapes: encode and decode kernels == plain "
+        f"twins, values exact, stream_ok; {entry} entry, {plan.ctas} CTA(s) of {plan.cta_lanes} threads "
+        f"per group{cluster}, ring {plan.ring_words} words, table in shared memory {plan.table_in_smem} "
         f"(shift {plan.shift}), {plan.smem_bytes} B shared memory per CTA; decode {ms:.4f} ms ({per_row})"
         + (f", twin {plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by})" if timed else ""))
-    return dict(rows=n_rows, ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(rows=n_rows, consumed=consumed, ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def check_decode_cases(codec, dev):
@@ -673,80 +671,24 @@ def check_decode_cases(codec, dev):
                 flag3, stage_rows(codec, 3), LANES, dev, smem_cap=cap)
 
 
-def grouped_case(label, codec, stages, rows_of, lanes, groups, dev, timed=True):
-    """Code `stages` as PCT1-G on the card (the encode kernel over all lanes,
-    per-group compaction), then decode every stage with the grouped kernel
-    and its twin, bit for bit, and check the values and stream_ok.  Returns
-    (rows, payload words consumed, kernel ms for all stages, twin ms for all
-    stages)."""
-    from progressivecodec_tpu_torch.coder import rans_cuda, rans_device
-
-    t = codec.device_tables
-    dstages = [tuple(a.to(dev) for a in s) for s in stages]
-    streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(dstages, t, lanes, groups)
-    escs = torch.nn.functional.pad(escs, (0, 2))
-    grids = [(rans_device._pad_to_grid(s_idx, lanes),
-              rans_device._pad_to_grid(s_keep.to(torch.uint8), lanes)) for _, s_idx, s_keep in dstages]
-    dec0 = rans_device.grouped_decoder_init(streams, lanes, groups)
-    dec = dec0
-    for (s_sym, s_idx, s_keep), (ig, kg), rows in zip(dstages, grids, rows_of):
-        got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf,
-                                                 t.compact, rows)
-        torch.cuda.synchronize()
-        want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
-        err = max_abs_err(got, want)
-        require(err == 0, f"{label}: grouped decode kernel != plain twin: max|d| {err}")
-        esc_off, vals = rans_device.decode_stage_grouped_values(
-            dec.esc_offsets, got[2], escs, s_idx, s_keep, t, lanes, groups)
-        require(torch.equal(vals, torch.where(s_keep, s_sym, 0)), f"{label}: decoded values != symbols")
-        dec = rans_device.GroupedDecoderState(got[0], got[1], esc_off)
-    require(bool(rans_device.grouped_stream_ok(dec)) and torch.equal(dec.offsets, n_words.to(torch.int32)),
-            f"{label}: stream_ok is False")
-
-    def run(plain):
-        d = dec0
-        for (ig, kg), rows in zip(grids, rows_of):
-            if plain:
-                s, o, _ = rans_cuda.rans_decode_scan_grouped_plain(d.states, d.offsets, streams, ig, kg,
-                                                                   t.dec_sf)
-            else:
-                s, o, _ = rans_cuda.rans_decode_scan_grouped(d.states, d.offsets, streams, ig, kg,
-                                                             t.dec_sf, t.compact, rows)
-            d = rans_device.GroupedDecoderState(s, o, d.esc_offsets)
-
-    n_rows = sum(ig.shape[0] for ig, _ in grids)
-    ms = cuda_time_ms(lambda: run(False), reps=10 if timed else 3, warmup=1)
-    plain_ms = cuda_time_ms(lambda: run(True), reps=1, warmup=0) if timed else None
-    plan = rans_cuda.plan_decode(t.compact, rows_of[-1], lanes // groups, rans_cuda._smem_optin(0))
-    ctas = (f"{groups} clusters of {plan.ctas} CTAs of {plan.cta_lanes} threads" if plan.ctas > 1
-            else f"clusters of {rans_cuda.decode_cluster(groups)}")
-    log(f"  decode case grouped {label}: P={n_rows} K={lanes} G={groups} (kt={lanes // groups}), "
-        f"{int(n_words.sum())} words, {int(n_escs.sum())} escapes: grouped kernel == plain twin, values "
-        f"exact, stream_ok; decode {ms:.4f} ms ({1e6 * ms / n_rows:.1f} ns per row), "
-        f"{plan.smem_bytes} B shared memory per CTA, {ctas}")
-    return n_rows, int(n_words.sum()) - 2 * lanes, ms, plain_ms
-
-
 def check_grouped_cases(codec, dev):
-    """Phase 3, third part: the PCT1-G decode kernel against its twin.
-    Returns the kernel-table entry, measured on the flagship-table stages at
-    K=512, G=4 (kt=128), the grouped flagship round trip's shape."""
+    """Phase 3, third part: the PCT1-G decode against its twin.  Returns the
+    kernel-table entry, measured on the flagship-table stages at K=512, G=4
+    (kt=128), the grouped flagship round trip's shape."""
     tables = codec._tables
     row0 = codec.gauss_row0
     flag = flagship_stages(tables, row0, np.random.default_rng(SEED + 7))
     rows_of = stage_rows(codec, len(flag))
-    n_rows, consumed, ms, plain_ms = grouped_case("flagship-table stages", codec, flag, rows_of,
-                                                  LANES, 4, dev)
-    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 16, dev)
-    grouped_case("flagship-table stages", codec, flag, rows_of, LANES, 2, dev, timed=False)
+    case = decode_case("flagship-table stages", codec, flag, rows_of, LANES, dev, groups=4, timed=True)
+    decode_case("flagship-table stages", codec, flag, rows_of, LANES, dev, groups=16, timed=True)
+    decode_case("flagship-table stages", codec, flag, rows_of, LANES, dev, groups=2)
     log_split(scan_split(tables, codec.device_tables, row0, dev))
     small = flagship_stages(tables, row0, np.random.default_rng(SEED + 8))
     small = [small[0], small[1], tuple(a[:50_000] for a in small[-1])]
     for lanes, groups in ((32, 4), (1024, 2), (64, 64), (96, 3)):
-        grouped_case("z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3),
-                     lanes, groups, dev, timed=False)
-    bound_ms, bound_by = decode_bound(codec.device_tables, rows_of, n_rows * LANES, consumed, LANES, groups=4)
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=0, bound_ms=bound_ms, bound_by=bound_by)
+        decode_case("z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3),
+                    lanes, dev, groups=groups)
+    return {key: case[key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}
 
 
 # ---------------------------------------------------------------------------
@@ -790,9 +732,8 @@ def launches_since(name: str) -> int:
 
 
 def read_launches():
-    """(encode, decode, grouped decode) launches since `zero_launches`."""
-    return tuple(launches_since(n) for n in ("rans_encode_scan", "rans_decode_scan",
-                                            "rans_decode_scan_grouped"))
+    """(encode, decode) launches since `zero_launches`."""
+    return tuple(launches_since(n) for n in ("rans_encode_scan", "rans_decode_scan"))
 
 
 def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None):
@@ -815,7 +756,7 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None
     out = codec.decompress(back, cust_map=cust_map)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    enc_n, dec_n, grp_n = read_launches()
+    enc_n, dec_n = read_launches()
 
     b = x.shape[0]
     cfg = codec.cfg
@@ -834,14 +775,13 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None
         want_dec = 1 + cfg.ns0
     else:
         want_dec = 1 + cfg.ns0 + (1 if codec.model.stacked else cfg.num_prog_slices)
-    got = (dec_n, grp_n) if codec.groups == 1 else (grp_n, dec_n)
-    require(got == (want_dec, 0), f"{label}: {got} (decode, grouped decode) launches, want {want_dec}")
-    n_esc = sum(len(e) for e in back["escs"]) if codec.groups > 1 else len(back["esc"])
+    require(dec_n == want_dec, f"{label}: {dec_n} decode launches, want {want_dec}")
+    n_esc = sum(len(e) for e in back["escs"])
     bpp = 8 * len(blob) / (b * H * W)
     log(f"  {label}: {len(blob)} bytes ({bpp:.4f} bpp), {n_esc // 2} escapes, "
         f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, launches encode={enc_n} "
-        f"decode={dec_n} grouped decode={grp_n}, stream_ok, y_hat bit-exact")
-    return {"enc": enc_n, "dec": dec_n, "grouped": grp_n, "esc": n_esc, "y_hat": out["y_hat"],
+        f"decode={dec_n}, stream_ok, y_hat bit-exact")
+    return {"enc": enc_n, "dec": dec_n, "esc": n_esc, "y_hat": out["y_hat"],
             "bytes": len(blob), "encode_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t3 - t2)}
 
 
@@ -929,7 +869,7 @@ def check_rem(dev, x1, cfg, lanes=LANES):
             and torch.equal(out["x_hat"], data["final"]["x_hat"]),
             "escalation: decoded y_hat or x_hat != the encoder's")
     n_levels = len(blobs)
-    want = (n_levels, n_levels * (1 + cfg.ns0 + cfg.num_prog_slices), 0)
+    want = (n_levels, n_levels * (1 + cfg.ns0 + cfg.num_prog_slices))
     require(launches == want, f"escalation: {launches} launches, want {want}")
     log(f"  REM escalation q=10: bytes per level {[len(b) for b in blobs]} (total "
         f"{sum(len(b) for b in blobs)}), encode {1e3 * (t1 - t0):.1f} ms, decode "
@@ -951,7 +891,7 @@ def check_eval(codec, n_images=2, qualities=(0.0, 5.0, 10.0)):
     real = evaluate_codec(codec, images, pr_list=qualities)
     launches = read_launches()
     n_dec = sum(1 + codec.cfg.ns0 + (q > 0) for q in qualities) * n_images
-    want = (len(qualities) * n_images, n_dec, 0)
+    want = (len(qualities) * n_images, n_dec)
     require(launches == want, f"evaluate_codec: {launches} launches, want {want}")
     est = entropy_estimate_eval(codec, images, pr_list=qualities)
     for j, q in enumerate(qualities):
@@ -1069,7 +1009,7 @@ def check_training(dev, smi, keep=None):
         losses += [r["valid"]["loss"] for r in recs if "valid" in r]
         require(bool(np.isfinite(losses).all()), f"a logged loss is not finite: {losses}")
         cfg = ModelConfig()
-        want = (6, 2 * sum(1 + cfg.ns0 + (q > 0) for q in (0.0, 1.0, 10.0)), 0)
+        want = (6, 2 * sum(1 + cfg.ns0 + (q > 0) for q in (0.0, 1.0, 10.0)))
         require(len(eval_launches) == 3 and all(n == want for n in eval_launches),
                 f"real-codec eval launches {eval_launches}, want {want} per epoch")
         real = [r["real_codec"] for r in recs if "real_codec" in r]
@@ -1101,13 +1041,13 @@ def check_training(dev, smi, keep=None):
         f"peak device memory {peak / 2**30:.2f} GiB")
     log(f"  checkpoints: {len(saves)} saves, {saves[0][1]} bytes each, save s "
         f"{[round(t, 2) for t, _ in saves]}")
-    log(f"  real-codec eval launches per epoch (encode, decode, grouped): {eval_launches}")
+    log(f"  real-codec eval launches per epoch (encode, decode): {eval_launches}")
     log(f"  cli.eval --checkpoint: real bpp {result['real_codec']['bpp']} = the trainer's last, "
         f"{t4 - t3:.1f} s")
     split_step(dev)
     card_vs_cpu(dev)
     log(f"  phase 7 on {smi}")
-    return tuple(sum(n[i] for n in eval_launches) for i in range(2))
+    return tuple(sum(n) for n in zip(*eval_launches))
 
 
 def split_step(dev, batch=16, patch=256):
@@ -1368,7 +1308,7 @@ def check_importance(dev, x1, smi):
     log(f"  cust_map q=5: keep count {int(keep_map.sum())} (sigma ranking {int(keep_sigma.sum())}), "
         f"{moved} keep flags differ from the sigma-ranked codec's")
     require(moved > 0, "the predicted cust_map kept the same elements as sigma ranking")
-    map_launches = (got["enc"], got["dec"], got["grouped"])
+    map_launches = (got["enc"], got["dec"])
 
     with phase("ImportanceMapDataset 2 items"):
         pairs = ImportanceMapDataset(SyntheticKodak(n=2), model, table, patch_size=256)
@@ -1389,7 +1329,7 @@ def check_importance(dev, x1, smi):
         with open(out) as f:
             require(json.load(f) == res, "rd_sweep's JSON file != its result")
     n_q = len(res["qualities"])
-    want = (n_q, sum(1 + cfg.ns0 + (q > 0) for q in res["qualities"]), 0)
+    want = (n_q, sum(1 + cfg.ns0 + (q > 0) for q in res["qualities"]))
     log(f"  cli.rd_sweep: {n_q} qualities in {rd_s:.1f} s, bpp {[round(v, 4) for v in res['bpp']]}, "
         f"BD-rate {res['bd_rate_vs_fixed_pret']}, launches encode={rd_launches[0]} "
         f"decode={rd_launches[1]}")
@@ -1471,7 +1411,7 @@ def _sync(dev):
 
 
 def _p9_events(dev):
-    """The three kernel wrappers and the sharded coder's gather, wrapped to
+    """The two kernel wrappers and the sharded coder's gather, wrapped to
     time each call: CUDA events around each kernel launch, the host clock
     (after a sync) around each gather through host memory.  Returns
     (spans {name: [(start, end)] or [ms]}, restore)."""
@@ -1479,7 +1419,7 @@ def _p9_events(dev):
     from progressivecodec_tpu_torch.parallel import sharded_coder
 
     spans = {"encode": [], "decode": [], "gather_ms": []}
-    orig = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather)
+    orig = (rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, sharded_coder.all_gather)
 
     def evented(fn, key):
         def run(*a, **kw):
@@ -1500,18 +1440,18 @@ def _p9_events(dev):
         return out
 
     rans_cuda.rans_encode_scan = evented(orig[0], "encode")
-    rans_cuda.rans_decode_scan_grouped = evented(orig[1], "decode")
+    rans_cuda.rans_decode_scan = evented(orig[1], "decode")
     sharded_coder.all_gather = gather
 
     def restore():
-        rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan_grouped, sharded_coder.all_gather = orig
+        rans_cuda.rans_encode_scan, rans_cuda.rans_decode_scan, sharded_coder.all_gather = orig
 
     return spans, restore
 
 
 def _p9_coder(codec, mesh, dev, ref) -> dict:
     """9.1: this rank's group of the PCT1-G streams at (K, G) = (LANES, 2)
-    and (32, 2), against the single-process grouped encoder's streams
+    and (32, 2), against the single-process encoder's streams at G = 2
     (`ref`), then the stage-wise sharded decode.  Returns, per K, the CUDA-
     event ms of this rank's encode launch and of its decode launches, and
     the host ms of its gathers."""
@@ -1532,9 +1472,9 @@ def _p9_coder(codec, mesh, dev, ref) -> dict:
             streams, n_words, escs, n_escs = sharded_encode_stages(dstages, t, lanes, mesh)
             for got, want, what in zip((streams, n_words, escs, n_escs), ref[lanes],
                                        ("streams", "n_words", "escs", "n_escs")):
-                require(torch.equal(got.cpu(), want), f"sharded {what} != the grouped encoder's at K={lanes}")
+                require(torch.equal(got.cpu(), want), f"sharded {what} != the encoder's at K={lanes}, G=2")
             padded = torch.nn.functional.pad(escs, (0, 2))
-            dec = rans_device.grouped_decoder_init(streams, lanes, 2)
+            dec = rans_device.decoder_init(streams, lanes)
             for (sym, idx, keep), rows in zip(dstages, stage_rows(codec, len(dstages))):
                 dec, vals = sharded_decode_stage(dec, streams, padded, idx, keep, t, lanes, mesh,
                                                  rows=rows)
@@ -1744,12 +1684,12 @@ def p9_nccl(workdir: str, port: int) -> None:
         stages = [tuple(a.to(dev) for a in s) for s in p9_coder_stages(codec)[32]]
         lanes = 64
         got = sharded_encode_stages(stages, t, lanes, mesh)
-        want = rans_device.encode_stages_grouped(stages, t, lanes, 1)
+        want = rans_device.encode_stages(stages, t, lanes, 1)
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
-                "NCCL G=1 sharded streams != the grouped encoder's")
+                "NCCL G=1 sharded streams != the encoder's")
         streams, n_words, escs, _ = got
         padded = torch.nn.functional.pad(escs, (0, 2))
-        dec = rans_device.grouped_decoder_init(streams, lanes, 1)
+        dec = rans_device.decoder_init(streams, lanes)
         for (sym, idx, keep), rows in zip(stages, stage_rows(codec, len(stages))):
             dec, vals = sharded_decode_stage(dec, streams, padded, idx, keep, t, lanes, mesh, rows=rows)
             require(torch.equal(vals, torch.where(keep, sym, 0)), "NCCL G=1 decoded values != symbols")
@@ -1790,11 +1730,11 @@ def run_spawned(jobs, timeout: float) -> None:
 def check_parallel(dev, smi, plan=None):
     """Phase 9: `parallel/` with two ranks sharing the card (gloo), then a
     one-rank NCCL group.  This process computes the references first (the
-    single-process grouped streams, the untiled round trips and analysis at
+    single-process streams at G = 2, the untiled round trips and analysis at
     2048x1024, one single-process train step), then spawns the 2-rank job
     (`p9_rank`), decodes the ranks' tiled streams untiled, and runs
     `p9_nccl`.  Returns the kernels' launches in the ranks, (encode,
-    decode, grouped decode)."""
+    decode)."""
     import os
     import shutil
     import socket
@@ -1818,7 +1758,7 @@ def check_parallel(dev, smi, plan=None):
         coder_ref = {}
         for lanes, stages in p9_coder_stages(codecs[1]).items():
             dstages = [tuple(a.to(dev) for a in s) for s in stages]
-            coder_ref[lanes] = tuple(a.cpu() for a in rans_device.encode_stages_grouped(
+            coder_ref[lanes] = tuple(a.cpu() for a in rans_device.encode_stages(
                 dstages, codecs[1].device_tables, lanes, 2))
         x = torch.from_numpy(synthetic_image(1, SEED + 12, h, w)).to(dev)
         with torch.no_grad():
@@ -1886,8 +1826,8 @@ def check_parallel(dev, smi, plan=None):
     for r, res in enumerate(ranks):
         for lanes, c in res["coder"].items():
             log(f"  9.1 rank {r} sharded coder K={lanes} G=2 (kt={lanes // 2}), {c['rows']} rows: "
-                f"streams == the grouped encoder's, values exact, stream_ok; encode launch "
-                f"{c['encode_ms']:.4f} ms, {c['decode_launches']} grouped decode launches "
+                f"streams == the encoder's at G=2, values exact, stream_ok; encode launch "
+                f"{c['encode_ms']:.4f} ms, {c['decode_launches']} decode launches "
                 f"{c['decode_ms']:.4f} ms (CUDA events), {c['gathers']} gathers {c['gather_ms']:.1f} ms "
                 f"(host clock) {share}")
     tiled = ranks[0]["tiled"]
@@ -1914,12 +1854,12 @@ def check_parallel(dev, smi, plan=None):
                 require(t["n_shards"] > 0 and 2 * t["sharded_bytes"] == t["full_sharded_bytes"]
                         and t["resident"] == t["sharded_bytes"] + t["replicated_bytes"],
                         f"mesh (1, 2) rank {r}: the sharded leaves are not held by halves")
-    launches = tuple(sum(res["launches"][i] for res in ranks) for i in range(3))
+    launches = tuple(sum(n) for n in zip(*(res["launches"] for res in ranks)))
     if nccl is not None:
         launches = tuple(a + b for a, b in zip(launches, nccl["launches"]))
         log(f"  9.4 one-rank NCCL group: allreduce_metrics, all_reduce, G=1 sharded encode and "
-            f"decode == the grouped encoder's, values exact, stream_ok; launches {nccl['launches']}")
-    log(f"  phase 9 launches in the ranks (encode, decode, grouped decode): {launches}")
+            f"decode == the encoder's, values exact, stream_ok; launches {nccl['launches']}")
+    log(f"  phase 9 launches in the ranks (encode, decode): {launches}")
     return launches
 
 # ---------------------------------------------------------------------------
@@ -1964,9 +1904,9 @@ def check_lane_counts(dev, smi):
     for k in (48, 1056, 4100):
         decode_case(f"K={k}, z, one base slice, part of the enhancement", codec, small, stage_rows(codec, 3), k,
                     dev)
-    grouped_case("flagship-table stages", codec, flag, rows_of, 4096, 2, dev, timed=False)
-    grouped_case("z, one base slice, part of the enhancement (kt=1025, staged)", codec, small,
-                 stage_rows(codec, 3), 4100, 4, dev, timed=False)
+    decode_case("flagship-table stages", codec, flag, rows_of, 4096, dev, groups=2)
+    decode_case("z, one base slice, part of the enhancement (kt=1025, staged)", codec, small,
+                stage_rows(codec, 3), 4100, dev, groups=4)
 
     # the row and the exchange: a stream of C CTAs of w lanes against C
     # groups of K / C lanes, one CTA each, on the same grid (the same rows)
@@ -2000,11 +1940,11 @@ def check_lane_counts(dev, smi):
 
     src = "progressivecodec_tpu_torch/csrc/rans_decode.cu"
     return [
-        dict(name="rans_decode_scan_cluster", route="cuda", source=src,
+        dict(name="rans_decode_scan", entry="cluster", route="cuda", source=src,
              replaces="progressivecodec_tpu/coder/rans_device.py:358", launches=launches[2048],
              library_ms=None, lanes=2048,
              **{key: cases[2048][key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}),
-        dict(name="rans_decode_scan_grid", route="cuda", source=src,
+        dict(name="rans_decode_scan", entry="grid", route="cuda", source=src,
              replaces="progressivecodec_tpu/coder/rans_device.py:358", launches=launches[16384],
              library_ms=None, lanes=16384,
              **{key: cases[16384][key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by")}),
@@ -2028,8 +1968,8 @@ def check_tools(dev, smi, run_dir):
     after 5 points and resumed, `rem_flagship` on that checkpoint (10 bank
     steps, 2 images), `rem_demo` (20 base and 20 bank steps) and
     `bd_trajectory` on phase 7's metrics.jsonl.  The launches are zeroed
-    before each tool and read after it.  Returns {tool: (encode, decode,
-    grouped decode) launches}."""
+    before each tool and read after it.  Returns {tool: (encode, decode)
+    launches}."""
     import os
     import tempfile
 
@@ -2047,8 +1987,7 @@ def check_tools(dev, smi, run_dir):
         out = fn()
         torch.cuda.synchronize()
         launches[name] = read_launches()
-        log(f"  {name}: {time.perf_counter() - t0:.1f} s, launches (encode, decode, grouped "
-            f"decode) {launches[name]}")
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s, launches (encode, decode) {launches[name]}")
         return out
 
     for mode in ("blocking", "trace"):
@@ -2107,7 +2046,7 @@ def check_tools(dev, smi, run_dir):
         grid = rd_ladder.GRIDS["coarse"]
         require(res["coded_this_run"] == list(grid[5:]) and res["qualities"] == list(grid)
                 and res["nvidia_smi"] == smi, f"rd_ladder resumed: {res}")
-        want = (2 * 7, 2 * sum(1 + cfg.ns0 + (q > 0) for q in grid[5:]), 0)
+        want = (2 * 7, 2 * sum(1 + cfg.ns0 + (q > 0) for q in grid[5:]))
         require(launches["rd_ladder resumed"] == want,
                 f"rd_ladder resumed: launches {launches['rd_ladder resumed']}, want {want}")
         log(f"  rd_ladder: bpp {[round(v, 4) for v in res['bpp']]}, BD-rate "
@@ -2141,56 +2080,6 @@ def check_tools(dev, smi, run_dir):
     return launches
 
 
-# phase 12
-# ---------------------------------------------------------------------------
-
-BENCH_TIMEOUT_S = 900
-
-
-def check_bench(smi, args=()):
-    """Phase 12: the port's bench, `python -m progressivecodec_tpu_torch.bench`,
-    in a process of its own at full size (the flagship, 768x512); it runs
-    each (quality, batch) of (10, 8), (10, 1) and (5, 8) in a fresh probe
-    process.  Requires exit 0, 0 < mfu < 1 under the bench's own gate, three
-    distinct probe processes, and in each probe every chain's stream_ok,
-    the decoded y_hat exact (also through serialize / deserialize) and one
-    encode and 1 + ns0 + 1 decode launches per chain, counted by the
-    wrappers inside the probe.  Returns the bench's last line."""
-    import os
-    import tempfile
-
-    from progressivecodec_tpu_torch.config import ModelConfig
-
-    cfg = ModelConfig()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "progressivecodec_tpu_torch.bench", "--out-dir", tmp,
-                              *args], capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-        require(out.returncode == 0,
-                f"bench exited {out.returncode}:\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
-        last = out.stdout.strip().splitlines()[-1]
-        rec = json.loads(last)
-        for name, r in rec["probes"].items():
-            with open(os.path.join(tmp, f"bench_probe_{name}.json")) as f:
-                require(json.load(f) == r, f"bench probe {name}: its record file differs from the last line")
-    log(f"  bench: {time.perf_counter() - t0:.1f} s")
-    want = {"encode": 1, "decode": 1 + cfg.ns0 + 1, "grouped_decode": 0}
-    pids = set()
-    for name, r in rec["probes"].items():
-        log(f"  bench probe {name}: {json.dumps(r)}")
-        require(r["stream_ok_all"] and r["y_hat_exact"] and r["x_hat_finite"], f"bench probe {name}: {r}")
-        require(r["launches_per_chain"] == want,
-                f"bench probe {name}: launches per chain {r['launches_per_chain']}, want {want}")
-        pids.add(r["pid"])
-    require(len(pids) == 3 and os.getpid() not in pids, f"bench probes' processes {pids}")
-    require(rec["metric"] == "kodak_enc_dec_images_per_s_per_chip_q10" and rec["value"] > 0,
-            f"bench: {last}")
-    require(isinstance(rec["mfu"], float) and 0 < rec["mfu"] < 1, f"bench: mfu {rec['mfu']}")
-    require(rec["nvidia_smi"] == smi, f"bench: nvidia_smi {rec['nvidia_smi']!r}, want {smi!r}")
-    log(f"  bench last line: {last}")
-    return rec
-
-
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -2204,14 +2093,14 @@ _AB_JOB = """
 import importlib.util, json, sys
 import torch
 sys.path.insert(0, ".")
-spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", "chip_smoke.py")
 m = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(m)
 from progressivecodec_tpu_torch import build
 build.build()
 dev = torch.device("cuda")
 tables = m.flagship_tables(dev)
-for k in json.loads(sys.argv[2]) or [None]:
+for k in json.loads(sys.argv[1]) or [None]:
     split = m.scan_split(*tables, dev) if k is None else m.scan_split(*tables, dev, groups=(1,), lanes=k)
     print(f"SPLIT {k} " + json.dumps(split))
 """
@@ -2221,15 +2110,15 @@ def ab_split(others, lanes=()) -> None:
     """`scan_split` of other checkouts of the repo (e.g. the parent commit
     unpacked by `git archive` into build/) against this one, one process
     each, in the order others, this, this, others reversed, on one card;
-    each builds its own kernels.  With `lanes`, the single stream at each
+    each runs its own chip_smoke.py against its own package and builds its
+    own kernels.  With `lanes`, the single stream at each
     of those K instead of the flagship's G in {1, 2, 4, 16}."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
     order = [("other", o) for o in others] + [("this", here)] * 2 + [("other", o) for o in others[::-1]]
     for label, tree in order:
-        out = subprocess.run([sys.executable, "-c", _AB_JOB, os.path.join(here, "chip_smoke.py"),
-                              json.dumps(list(lanes))],
+        out = subprocess.run([sys.executable, "-c", _AB_JOB, json.dumps(list(lanes))],
                              cwd=tree, capture_output=True, text=True, timeout=900)
         require(out.returncode == 0, f"split of {tree} failed:\n{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
         for line in out.stdout.splitlines():
@@ -2285,7 +2174,7 @@ def main() -> int:
     log(f"  flagship model {n_params} parameters, tables built in {time.perf_counter() - t0:.1f} s")
     results = check_kernels(codec, dev)
     check_decode_cases(codec, dev)
-    results["rans_decode_scan_grouped"] = check_grouped_cases(codec, dev)
+    grouped_results = check_grouped_cases(codec, dev)
 
     log("phase 4: main paths at 768x512")
     log("  flagship ModelConfig(), one stream")
@@ -2363,15 +2252,8 @@ def main() -> int:
     log("phase 11: the codec tools on the card")
     t0 = time.perf_counter()
     tool_launches = check_tools(dev, smi, run_dir)
-    log(f"  phase 11 launches per tool (encode, decode, grouped decode): {tool_launches}")
+    log(f"  phase 11 launches per tool (encode, decode): {tool_launches}")
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
-
-    log("phase 12: the bench, one fresh process per (quality, batch)")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    bench = check_bench(smi)
-    bench_launches = bench["probes"]["q10_b8"]["launches_per_chain"]
-    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
@@ -2380,20 +2262,18 @@ def main() -> int:
              launches=main_counts["enc"], library_ms=None, train_eval_launches=train_enc,
              cust_map_launches=map_launches[0], rd_sweep_launches=rd_launches[0],
              sharded_launches=sharded[0], tools_launches={k: v[0] for k, v in tool_launches.items()},
-             bench_launches_per_chain=bench_launches["encode"], **results["rans_encode_scan"]),
-        dict(name="rans_decode_scan", route="cuda",
+             **results["rans_encode_scan"]),
+        dict(name="rans_decode_scan", entry="stream", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:358",
              launches=main_counts["dec"], library_ms=None, train_eval_launches=train_dec,
              cust_map_launches=map_launches[1], rd_sweep_launches=rd_launches[1],
              sharded_launches=sharded[1], tools_launches={k: v[1] for k, v in tool_launches.items()},
-             bench_launches_per_chain=bench_launches["decode"], **results["rans_decode_scan"]),
-        dict(name="rans_decode_scan_grouped", route="cuda",
+             **results["rans_decode_scan"]),
+        dict(name="rans_decode_scan", entry="grouped", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
-             launches=grouped_counts["grouped"], library_ms=None, sharded_launches=sharded[2],
-             tools_launches={k: v[2] for k, v in tool_launches.items()},
-             **results["rans_decode_scan_grouped"]),
+             launches=grouped_counts["dec"], library_ms=None, **grouped_results),
     ] + spanning
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")

@@ -1,18 +1,19 @@
 """The rANS scans: CUDA kernels for Hopper and their plain PyTorch twins.
 
-  rans_encode_scan          replaces coder/rans_pallas.py:encode_scan_rev_pallas
-                            (csrc/rans_encode.cu)
-  rans_decode_scan          replaces coder/rans_device.py:decode_stage_scan
-                            (csrc/rans_decode.cu)
-  rans_decode_scan_grouped  replaces coder/rans_device.py:decode_stage_grouped,
-                            the PCT1-G scan (csrc/rans_decode.cu, one CTA
-                            per group, in clusters of `decode_cluster(G)`)
+  rans_encode_scan  replaces coder/rans_pallas.py:encode_scan_rev_pallas
+                    (csrc/rans_encode.cu)
+  rans_decode_scan  replaces coder/rans_device.py:decode_stage_scan and
+                    decode_stage_grouped, the PCT1-G scan of G streams, of
+                    which one stream is the case G = 1 (csrc/rans_decode.cu)
 
-A stream or group of more than 1,024 lanes spans C CTAs (`decode_span`):
-a thread-block cluster for C <= 8, a cooperative grid above, counted as
-`launch:cluster` and `launch:grid` besides the wrapper's own count.  A
-single stream whose K is not a whole number of warps up to 1,024 runs as
-one group of the grouped instance.
+The decode wrapper picks the kernel's entry from the shapes it sees
+(`decode_entry`): one stream whose K is a whole number of warps up to
+1,024 runs on the one-stream instance, one CTA; every other case on the
+grouped instance, one CTA per group in thread-block clusters of
+`decode_cluster(G)`, or, for a group of more than 1,024 lanes, C CTAs
+per group (`decode_span`): a cluster for C <= 8, a cooperative grid
+above, counted as `launch:cluster` and `launch:grid` besides the
+wrapper's own count.
 
 Each wrapper takes its route from the device of its tensors: a CPU tensor
 goes to the plain twin, a CUDA tensor launches the kernel.  On CUDA there
@@ -27,7 +28,8 @@ the kernels read the same bits as uint32_t / uint16_t.
 The decode kernel finds each symbol in a compact CDF table that it brings
 into shared memory (`plan_decode` sizes it; the grouped launch by bulk
 copies multicast over a thread-block cluster); its twin reads the 64 MiB
-`dec_sf` table, so the two reach the symbol by different routes.
+`dec_sf` table (`rans_device.twin_dec_sf`), so the two reach the symbol by
+different routes.
 """
 
 from __future__ import annotations
@@ -159,27 +161,17 @@ def rans_encode_scan(sf_rev: torch.Tensor, kp_rev: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def rans_decode_scan_plain(states: torch.Tensor, offset: torch.Tensor, stream: torch.Tensor,
+def rans_decode_scan_plain(states: torch.Tensor, offsets: torch.Tensor, streams: torch.Tensor,
                            idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor):
-    """Decode state recursion of one stage.
+    """Decode state recursion of one stage for G streams (groups) of kt =
+    K/G lanes (PCT1-G; one stream is G = 1): group g owns lanes [g*kt,
+    (g+1)*kt), reads stream row g from offsets[g], and ranks its renorm
+    words within the group.
 
-    states (K,) int32 bits, offset (1,) int32, stream (W,) int16 bits (reads
-    past its end give 0), idx (P, K) int32 CDF rows, kp (P, K) uint8,
-    dec_sf (R*2^16,) int32 bits.  Returns (states (K,) int32 bits, offset
-    (1,) int32, cums (P, K) int32).  The one-group case of
-    `rans_decode_scan_grouped_plain`."""
-    return rans_decode_scan_grouped_plain(states, offset, stream[None], idx, kp, dec_sf)
-
-
-def rans_decode_scan_grouped_plain(states: torch.Tensor, offsets: torch.Tensor,
-                                   streams: torch.Tensor, idx: torch.Tensor, kp: torch.Tensor,
-                                   dec_sf: torch.Tensor):
-    """The same recursion for G groups of kt = K/G lanes (PCT1-G): group g
-    owns lanes [g*kt, (g+1)*kt), reads stream row g from offsets[g], and
-    ranks its renorm words within the group.
-
-    offsets (G,) int32, streams (G, W) int16 bits (reads past W give 0).
-    Returns (states (K,), offsets (G,), cums (P, K))."""
+    states (K,) int32 bits, offsets (G,) int32, streams (G, W) int16 bits
+    (reads past W give 0), idx (P, K) int32 CDF rows, kp (P, K) uint8,
+    dec_sf (R*2^16,) int32 bits.  Returns (states (K,) int32 bits, offsets
+    (G,) int32, cums (P, K) int32)."""
     p, k = idx.shape
     g = streams.shape[0]
     kt = k // g
@@ -391,110 +383,98 @@ def _smem_cap(dev, smem_cap):
     return smem_cap or _smem_optin(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
-def rans_decode_scan(states: torch.Tensor, offset: torch.Tensor, stream: torch.Tensor,
-                     idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor,
+def decode_entry(groups: int, lanes: int, ctas: int) -> str:
+    """The decode kernel's entry for G streams of K/G lanes, each on `ctas`
+    CTAs (`decode_span`): "stream", the one-stream instance, for one
+    stream whose K is a whole number of warps up to 1,024; else the
+    grouped instance, one CTA per group ("grouped"), or C > 1 CTAs per
+    group as a thread-block cluster ("cluster", C <= 8) or a cooperative
+    grid ("grid")."""
+    if groups == 1 and lanes % 32 == 0 and lanes <= MAX_CTA_LANES:
+        return "stream"
+    if ctas == 1:
+        return "grouped"
+    return "grid" if ctas > MAX_CLUSTER else "cluster"
+
+
+def rans_decode_scan(states: torch.Tensor, offsets: torch.Tensor, streams: torch.Tensor,
+                     idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor | None,
                      compact: CompactCdf | None = None, rows=None, *, smem_cap: int | None = None):
-    """Same contract as `rans_decode_scan_plain`; launches the CUDA kernel
-    for CUDA tensors: one CTA of K threads when K is a multiple of 32 up to
-    1,024; else the grouped instance with one group (K < 32 or K % 32 != 0)
-    or C CTAs (K > 1,024, `decode_span`).
+    """Same contract as `rans_decode_scan_plain`; for CUDA tensors one
+    launch of the entry `decode_entry` picks: one CTA of K threads (one
+    stream, K a multiple of 32 up to 1,024); G CTAs, one per group, of kt
+    lanes rounded up to whole warps (kt <= 1,024), in clusters of
+    `decode_cluster(G)` CTAs that share the on-chip table's copies (no
+    cluster on the global-table path); or, for kt > 1,024, G times C CTAs
+    (`decode_span`), each group a cluster of C CTAs or, above 8, a share of
+    a cooperative grid.
 
-    The kernel looks symbols up in `compact` (required on CUDA), restricted
-    to the CDF rows [row0, row1) = `rows` (default: all), which every kept
-    cell's idx must lie in.  `smem_cap` lowers the shared-memory budget
-    (default: the card's opt-in maximum); a cap too small for the table
-    selects the global-table path."""
-    dev = states.device
-    _check("states", states, torch.int32, 1, dev)
-    _check("offset", offset, torch.int32, 1, dev)
-    _check("stream", stream, torch.int16, 1, dev)
-    _check("idx", idx, torch.int32, 2, dev)
-    _check("kp", kp, torch.uint8, 2, dev)
-    _check("dec_sf", dec_sf, torch.int32, 1, dev)
-    p, k = idx.shape
-    if kp.shape != idx.shape or states.shape[0] != k or offset.shape[0] != 1:
-        raise ValueError("rans_decode_scan: inconsistent shapes")
-    if dev.type == "cpu":
-        return rans_decode_scan_plain(states, offset, stream, idx, kp, dec_sf)
-    if dev.type != "cuda":
-        raise ValueError(f"rans_decode_scan: unsupported device {dev}")
-    if compact is None or compact.device != dev:
-        raise ValueError(f"rans_decode_scan kernel needs the CompactCdf tables on {dev}")
-    if k % 32 or k > MAX_CTA_LANES:
-        out = _launch_groups(states, offset, stream[None], idx, kp, compact, rows, _smem_cap(dev, smem_cap))
-        count("launch:rans_decode_scan")
-        return out
-    cap = _smem_cap(dev, smem_cap)
-    rows = rows or (0, compact.meta.shape[0])
-    plan = plan_decode(compact, rows, k, cap)
-    stream, idx, kp = _aligned(stream), _aligned(idx), _aligned(kp)
-    # the stage's rows of the bucket table at plan.shift
-    buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
-    states_out = torch.empty((k,), dtype=torch.int32, device=dev)
-    offset_out = torch.empty((1,), dtype=torch.int32, device=dev)
-    cums = torch.empty((p, k), dtype=torch.int32, device=dev)
-    ci = ctypes.c_int
-    fn = _fn("rans_decode", "rans_decode_scan", _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP,
-             _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, _VP)
-    rc = fn(states.data_ptr(), offset.data_ptr(), stream.data_ptr(), stream.numel(),
-            idx.data_ptr(), kp.data_ptr(), compact.starts.data_ptr(), buckets,
-            compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
-            plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
-            states_out.data_ptr(), offset_out.data_ptr(),
-            cums.data_ptr(), p, k, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"rans_decode_scan kernel launch failed: cudaError {rc}")
-    count("launch:rans_decode_scan")
-    return states_out, offset_out, cums
-
-
-
-def rans_decode_scan_grouped(states: torch.Tensor, offsets: torch.Tensor, streams: torch.Tensor,
-                             idx: torch.Tensor, kp: torch.Tensor, dec_sf: torch.Tensor,
-                             compact: CompactCdf | None = None, rows=None, *,
-                             smem_cap: int | None = None):
-    """Same contract as `rans_decode_scan_grouped_plain`; for CUDA tensors
-    one launch: G CTAs, one per group, of kt lanes rounded up to whole
-    warps (kt <= 1,024), in clusters of `decode_cluster(G)` CTAs that share
-    the on-chip table's copies (no cluster on the global-table path); or,
-    for kt > 1,024, G times C CTAs (`decode_span`), each group a cluster of
-    C CTAs or, above 8, a share of a cooperative grid.  `compact`, `rows` and `smem_cap` as for
-    `rans_decode_scan`."""
+    The kernel looks symbols up in `compact` (required on CUDA; dec_sf, the
+    twin's table, is read on the CPU only), restricted to the CDF rows
+    [row0, row1) = `rows` (default: all), which every kept cell's idx must
+    lie in.  `smem_cap` lowers the shared-memory budget (default: the
+    card's opt-in maximum); a cap too small for the table selects the
+    global-table path."""
     dev = states.device
     _check("states", states, torch.int32, 1, dev)
     _check("offsets", offsets, torch.int32, 1, dev)
     _check("streams", streams, torch.int16, 2, dev)
     _check("idx", idx, torch.int32, 2, dev)
     _check("kp", kp, torch.uint8, 2, dev)
-    _check("dec_sf", dec_sf, torch.int32, 1, dev)
     p, k = idx.shape
     g = streams.shape[0]
     if (kp.shape != idx.shape or states.shape[0] != k or offsets.shape[0] != g or g < 1
             or k % g):
-        raise ValueError("rans_decode_scan_grouped: inconsistent shapes")
+        raise ValueError("rans_decode_scan: inconsistent shapes")
     if dev.type == "cpu":
-        return rans_decode_scan_grouped_plain(states, offsets, streams, idx, kp, dec_sf)
+        _check("dec_sf", dec_sf, torch.int32, 1, dev)
+        return rans_decode_scan_plain(states, offsets, streams, idx, kp, dec_sf)
     if dev.type != "cuda":
-        raise ValueError(f"rans_decode_scan_grouped: unsupported device {dev}")
+        raise ValueError(f"rans_decode_scan: unsupported device {dev}")
     if compact is None or compact.device != dev:
-        raise ValueError(f"rans_decode_scan_grouped kernel needs the CompactCdf tables on {dev}")
-    out = _launch_groups(states, offsets, streams, idx, kp, compact, rows, _smem_cap(dev, smem_cap))
-    count("launch:rans_decode_scan_grouped")
+        raise ValueError(f"rans_decode_scan kernel needs the CompactCdf tables on {dev}")
+    cap = _smem_cap(dev, smem_cap)
+    rows = rows or (0, compact.meta.shape[0])
+    plan = plan_decode(compact, rows, k // g, cap)
+    launch = _launch_stream if decode_entry(g, k, plan.ctas) == "stream" else _launch_groups
+    out = launch(states, offsets, streams, idx, kp, compact, rows, plan, cap)
+    count("launch:rans_decode_scan")
     return out
 
 
+def _launch_stream(states, offsets, streams, idx, kp, compact, rows, plan, cap):
+    """One launch of the one-stream instance: one CTA of K threads."""
+    dev = states.device
+    p, k = idx.shape
+    streams, idx, kp = _aligned(streams), _aligned(idx), _aligned(kp)
+    # the stage's rows of the bucket table at plan.shift
+    buckets = compact.buckets(rows, plan.shift).data_ptr() if plan.table_in_smem else 0
+    states_out = torch.empty((k,), dtype=torch.int32, device=dev)
+    offsets_out = torch.empty((1,), dtype=torch.int32, device=dev)
+    cums = torch.empty((p, k), dtype=torch.int32, device=dev)
+    ci = ctypes.c_int
+    fn = _fn("rans_decode", "rans_decode_scan", _VP, _VP, _VP, ctypes.c_longlong, _VP, _VP, _VP,
+             _VP, _VP, ci, ci, ci, ci, ci, ci, ci, ci, ci, _VP, _VP, _VP, ci, ci, _VP)
+    rc = fn(states.data_ptr(), offsets.data_ptr(), streams.data_ptr(), streams.numel(),
+            idx.data_ptr(), kp.data_ptr(), compact.starts.data_ptr(), buckets,
+            compact.meta.data_ptr(), plan.row0, plan.nrows, plan.span_base, plan.span_len,
+            plan.shift, plan.bucket_stride, plan.ring_words, int(plan.table_in_smem), cap,
+            states_out.data_ptr(), offsets_out.data_ptr(),
+            cums.data_ptr(), p, k, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"rans_decode_scan kernel launch failed: cudaError {rc}")
+    return states_out, offsets_out, cums
 
-def _launch_groups(states, offsets, streams, idx, kp, compact, rows, cap):
-    """One launch of the decode kernel over G = streams.shape[0] streams of
-    kt = K/G lanes: the grouped entry (one CTA per group) for kt <= 1,024,
-    the span entry (C CTAs per group) above.  Returns (states, offsets,
-    cums)."""
+
+def _launch_groups(states, offsets, streams, idx, kp, compact, rows, plan, cap):
+    """One launch of the grouped instance over G = streams.shape[0]
+    streams of kt = K/G lanes: the grouped entry (one CTA per group) for
+    kt <= 1,024, the span entry (C CTAs per group) above.  Returns (states,
+    offsets, cums)."""
     dev = states.device
     p, k = idx.shape
     g = streams.shape[0]
     kt = k // g
-    rows = rows or (0, compact.meta.shape[0])
-    plan = plan_decode(compact, rows, kt, cap)
     lanes, ctas = plan.cta_lanes, plan.ctas
     width = ctas * lanes  # a group's columns, padded to whole CTAs when staged
     if g > 1 and streams.shape[1] % 8:  # rows 16 bytes apart; the zeros read as past the end

@@ -93,9 +93,10 @@ class Codec:
     def serialize(self, data: dict) -> bytes:
         """Container: magic | version u8 | quality f32 | batch u16 | z_h u16 |
         z_w u16 | lanes u16 | groups u8 | mask_pol len u8 + utf8 | per group
-        (n_words u32 | n_esc_words u32 | words | escape words)."""
+        (n_words u32 | n_esc_words u32 | words | escape words).  The dict
+        holds G `streams` and G `escs` for every G, one stream being G = 1."""
         mp = (data["mask_pol"] or self.cfg.mask_policy).encode()
-        groups = int(data.get("groups", 1))
+        groups = len(data["streams"])
         lanes = data.get("lanes", self.lanes)
         if int(lanes) != lanes or not 0 <= lanes <= MAX_LANES:
             raise ValueError(f"lanes {lanes!r} do not fit the container's u16")
@@ -103,12 +104,8 @@ class Codec:
             "<BfHHHHBB", FORMAT_VERSION, data["quality"], data["batch"],
             *data["z_shape"], int(lanes), groups, len(mp),
         )
-        if groups > 1:
-            segments = list(zip(data["streams"], data["escs"]))
-        else:
-            segments = [(data["stream"], data.get("esc", np.zeros(0, np.uint16)))]
         body = b""
-        for words, esc in segments:
+        for words, esc in zip(data["streams"], data["escs"]):
             with span("sync:words_to_host"):
                 words, esc = words_np(words).astype("<u2"), words_np(esc).astype("<u2")
             with span("glue:pack"):
@@ -145,13 +142,8 @@ class Codec:
             off += 2 * n_esc
         if off != len(blob):
             raise ValueError(f"container is {len(blob)} bytes, its header says {off}")
-        out = {"z_shape": (zh, zw), "batch": batch, "quality": quality, "mask_pol": mp,
-               "lanes": lanes}
-        if groups > 1:
-            out.update({"streams": streams, "escs": escs, "groups": groups})
-        else:
-            out.update({"stream": streams[0], "esc": escs[0]})
-        return out
+        return {"z_shape": (zh, zw), "batch": batch, "quality": quality, "mask_pol": mp,
+                "lanes": lanes, "groups": groups, "streams": streams, "escs": escs}
 
 
 def _stream_capacity(batch: int, z_shape: tuple, cfg: ModelConfig, lanes: int) -> int:

@@ -20,11 +20,13 @@ Encode and decode must use the same batch shape.
 The rANS scans run as CUDA kernels on the card (`coder/rans_cuda.py`):
 one encode-scan launch per `compress`, one decode-scan launch per stage of
 `decompress` (z, each base slice, then the stacked enhancement stage or
-one stage per unrolled enhancement slice when quality > 0); with groups > 1
-each stage is one launch of the grouped decode kernel.  With a
-`coder_mesh` (parallel/sharded_coder.py) each rank of the mesh axis makes
-those launches for its own lane group: an encode launch over its kt lanes,
-and per stage a grouped decode launch of one CTA.
+one stage per unrolled enhancement slice when quality > 0), over every
+group.  The one-stream container is PCT1-G at one group: the coder takes
+one path, from the container dict's G `streams` and `escs` down to the
+decode wrapper, for every G.  With a `coder_mesh`
+(parallel/sharded_coder.py) each rank of the mesh axis makes those
+launches for its own lane group: an encode launch over its kt lanes, and
+per stage a decode launch of its one group.
 
 The unrolled enhancement's quality-independent networks (each slice's
 parameter networks, its refinement banks, its reconstruction tail) run as
@@ -48,11 +50,7 @@ import numpy as np
 import torch
 
 from progressivecodec_tpu_torch.coder import rans_device
-from progressivecodec_tpu_torch.coder.rans_device import (
-    DecoderState,
-    GroupedDecoderState,
-    _pad_to_grid,
-)
+from progressivecodec_tpu_torch.coder.rans_device import DecoderState, _pad_to_grid
 from progressivecodec_tpu_torch.coder.tables import DEFAULT_LANES, check_lanes
 from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models import graphs
@@ -324,38 +322,23 @@ class GranularCodec(Codec):
             "lanes": lanes,
         }
         t = self.device_tables
-        if self.groups > 1:
-            if self.coder_mesh is not None:
-                streams, n_words, escs, n_escs = sharded_encode_stages(
-                    stages, t, lanes, self.coder_mesh, self.coder_axis
-                )
-            else:
-                streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(
-                    stages, t, lanes, self.groups
-                )
-            with span("sync:n_words"):
-                nw, ne = n_words.tolist(), n_escs.tolist()
-            count("words:payload", sum(nw))
-            count("words:escape", 2 * sum(ne))
-            with span("glue:container"):
-                result.update({
-                    "groups": self.groups,
-                    "streams": [streams[g, : nw[g]] for g in range(self.groups)],
-                    "escs": [escs[g, : 2 * ne[g]] for g in range(self.groups)],
-                    "num_bytes": 2 * (sum(nw) + 2 * sum(ne)),
-                })
+        if self.coder_mesh is not None:
+            streams, n_words, escs, n_escs = sharded_encode_stages(
+                stages, t, lanes, self.coder_mesh, self.coder_axis
+            )
         else:
-            stream, n_words, esc, n_esc = rans_device.encode_stages(stages, t, lanes)
-            with span("sync:n_words"):
-                n_words, n_esc = int(n_words), int(n_esc)
-            count("words:payload", n_words)
-            count("words:escape", 2 * n_esc)
-            with span("glue:container"):
-                result.update({
-                    "stream": stream[:n_words],
-                    "esc": esc[: 2 * n_esc],
-                    "num_bytes": 2 * (n_words + 2 * n_esc),
-                })
+            streams, n_words, escs, n_escs = rans_device.encode_stages(stages, t, lanes, self.groups)
+        with span("sync:n_words"):
+            nw, ne = torch.stack([n_words, n_escs]).tolist()
+        count("words:payload", sum(nw))
+        count("words:escape", 2 * sum(ne))
+        with span("glue:container"):
+            result.update({
+                "groups": self.groups,
+                "streams": [streams[g, : nw[g]] for g in range(self.groups)],
+                "escs": [escs[g, : 2 * ne[g]] for g in range(self.groups)],
+                "num_bytes": 2 * (sum(nw) + 2 * sum(ne)),
+            })
         if simulate:
             if y_hat_prog is not None:
                 result["x_hat"] = m.codec_synth(1, y_hat_prog)
@@ -383,38 +366,24 @@ class GranularCodec(Codec):
 
     def _stage_decoder(self, data: dict, lanes: int, cap: int):
         """dec_stage(indexes, keep, row_off) -> values, over the container's
-        one stream or G sub-streams, and the decoder state it advances."""
+        G sub-streams (one stream: G = 1), and the decoder state it
+        advances."""
         t = self.device_tables
         row0 = self.gauss_row0
         n_rows = t.offset.shape[0]
-        empty = np.zeros(0, np.uint16)
         g = self.groups
-        if g == 1:
-            with span("sync:words_to_device"):
-                stream = self._words(data["stream"])
-                esc = torch.cat([self._words(data.get("esc", empty)),
-                                 torch.zeros(2, dtype=torch.int16, device=self.device)])
-            if stream.numel() > cap:
-                raise ValueError("stream longer than the container's capacity")
-            dec = [rans_device.decoder_init(stream, lanes)]
-        else:
-            # group g's capacity: its share of the payload and its own head
-            kt = lanes // g
-            cap_g = (cap - 2 * lanes) // g + 2 * kt
-            # rows padded to 8 words (the kernel's 16-byte copies); the
-            # zeros read as words past the end
-            streams = torch.zeros((g, -(-cap_g // 8) * 8), dtype=torch.int16, device=self.device)
-            escs = torch.zeros((g, 2 * cap_g + 2), dtype=torch.int16, device=self.device)
-            if len(data["streams"]) != g or len(data["escs"]) != g:
-                raise ValueError(f"container holds {len(data['streams'])} streams for groups={g}")
-            for i, (w, e) in enumerate(zip(data["streams"], data["escs"])):
-                with span("sync:words_to_device"):
-                    w, e = self._words(w), self._words(e)
-                if w.numel() > cap_g or e.numel() > 2 * cap_g:
-                    raise ValueError(f"group {i}'s stream is longer than its capacity")
-                streams[i, : w.numel()] = w
-                escs[i, : e.numel()] = e
-            dec = [rans_device.grouped_decoder_init(streams, lanes, g)]
+        if len(data["streams"]) != g or len(data["escs"]) != g:
+            raise ValueError(f"container holds {len(data['streams'])} streams for groups={g}")
+        # group g's capacity: its share of the payload and its own head
+        cap_g = (cap - 2 * lanes) // g + 2 * (lanes // g)
+        with span("sync:words_to_device"):
+            words = [self._words(w) for w in data["streams"]]
+            escs = [self._words(e) for e in data["escs"]]
+        for i, (w, e) in enumerate(zip(words, escs)):
+            if w.numel() > cap_g or e.numel() > 2 * cap_g:
+                raise ValueError(f"group {i}'s stream is longer than its capacity")
+        streams, escs = _rows(words, 0), _rows(escs, 2)
+        dec = [rans_device.decoder_init(streams, lanes)]
 
         def dec_stage(indexes, keep, row_off):
             # z codes on the bottleneck rows [0, row0), y on the Gaussian rows
@@ -425,20 +394,14 @@ class GranularCodec(Codec):
                 ig = _pad_to_grid(idx_flat, lanes)
                 kg = _pad_to_grid(kp_flat.to(torch.uint8), lanes)
             d = dec[0]
-            if g == 1:
-                states, offset, cums = rans_device.decode_stage_scan(d, stream, ig, kg, t, lanes, rows)
-                esc_offset, vals = rans_device.decode_stage_values(
-                    d.esc_offset, cums, esc, idx_flat, kp_flat, t, lanes)
-                dec[0] = DecoderState(states, offset, esc_offset)
-            elif self.coder_mesh is not None:
+            if self.coder_mesh is not None:
                 dec[0], vals = sharded_decode_stage(d, streams, escs, idx_flat, kp_flat, t, lanes,
                                                     self.coder_mesh, self.coder_axis, rows)
             else:
-                states, offsets, cums = rans_device.decode_stage_grouped_scan(
-                    d, streams, ig, kg, t, lanes, rows)
-                esc_offsets, vals = rans_device.decode_stage_grouped_values(
-                    d.esc_offsets, cums, escs, idx_flat, kp_flat, t, lanes, g)
-                dec[0] = GroupedDecoderState(states, offsets, esc_offsets)
+                states, offsets, cums = rans_device.decode_stage_scan(d, streams, ig, kg, t, lanes, rows)
+                esc_offsets, vals = rans_device.decode_stage_values(
+                    d.esc_offsets, cums, escs, idx_flat, kp_flat, t, lanes)
+                dec[0] = DecoderState(states, offsets, esc_offsets)
             return vals
 
         return dec_stage, dec
@@ -449,7 +412,7 @@ class GranularCodec(Codec):
         """Entropy decode + slice reconstruction, stopping before g_s."""
         cfg, m = self.cfg, self.model
         self.update()
-        data_groups = int(data.get("groups", 1))
+        data_groups = int(data["groups"])
         if data_groups != self.groups:
             raise ValueError(
                 f"container has groups={data_groups} but this codec was built with "
@@ -493,6 +456,20 @@ class GranularCodec(Codec):
         with span("sync:stream_ok"):
             ok = bool(rans_device.stream_ok(dec[0]))
         return {"y_hat": y_hat, "stream_ok": ok}
+
+
+def _rows(segments, tail: int) -> torch.Tensor:
+    """Word segments as the rows of a (G, W) int16 matrix, each zero-padded
+    to the longest plus `tail` words, W a multiple of 8 (rows 16 bytes
+    apart, as the kernel copies them); the zeros read as words past the
+    end.  One segment with no tail is its own tensor, viewed as one row."""
+    if len(segments) == 1 and not tail:
+        return segments[0][None]
+    width = -(-(max(s.numel() for s in segments) + tail) // 8) * 8
+    out = segments[0].new_zeros((len(segments), width))
+    for i, s in enumerate(segments):
+        out[i, : s.numel()] = s
+    return out
 
 
 def _drop_graphs(codec_ref) -> None:

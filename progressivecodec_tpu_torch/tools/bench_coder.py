@@ -62,21 +62,22 @@ def card_line() -> str:
 
 
 def encode(stages, t, lanes):
-    stream, n_words, esc, n_esc = rans_device.encode_stages(stages, t, lanes)
-    return stream[: int(n_words)], esc[: 2 * int(n_esc)]
+    """One stream: its words as a (1, W) row, and its escape words."""
+    streams, n_words, escs, n_escs = rans_device.encode_stages(stages, t, lanes)
+    return streams[:, : int(n_words[0])], escs[0, : 2 * int(n_escs[0])]
 
 
-def decode(stream, esc, stages, t, lanes):
+def decode(streams, esc, stages, t, lanes):
     """Every stage's values and the final decoder state."""
-    esc = torch.nn.functional.pad(esc, (0, 2))
-    dec = rans_device.decoder_init(stream, lanes)
+    escs = torch.nn.functional.pad(esc, (0, 2))[None]
+    dec = rans_device.decoder_init(streams, lanes)
     outs = []
     for _, idx, keep in stages:
         ig = rans_device._pad_to_grid(idx, lanes)
         kg = rans_device._pad_to_grid(keep.to(torch.uint8), lanes)
-        states, offset, cums = rans_device.decode_stage_scan(dec, stream, ig, kg, t, lanes)
-        esc_off, vals = rans_device.decode_stage_values(dec.esc_offset, cums, esc, idx, keep, t, lanes)
-        dec = rans_device.DecoderState(states, offset, esc_off)
+        states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+        esc_offsets, vals = rans_device.decode_stage_values(dec.esc_offsets, cums, escs, idx, keep, t, lanes)
+        dec = rans_device.DecoderState(states, offsets, esc_offsets)
         outs.append(vals)
     return outs, dec
 
@@ -107,7 +108,7 @@ def bench(lanes: int, stages, t, compact, dev, reps: int, card: str | None) -> d
     for (sym, _, keep), vals in zip(stages, outs):
         if not torch.equal(vals, torch.where(keep, sym, 0)):
             raise AssertionError(f"K={lanes}: decoded values != symbols")
-    if not bool(rans_device.stream_ok(dec)) or int(dec.offset) != stream.numel():
+    if not bool(rans_device.stream_ok(dec)) or int(dec.offsets) != stream.numel():
         raise AssertionError(f"K={lanes}: stream_ok is False")
     cap = rans_cuda._smem_optin(dev.index or 0) if dev.type == "cuda" else H100_SMEM_OPTIN
     plan = rans_cuda.plan_decode(compact, (0, compact.meta.shape[0]), lanes, cap)

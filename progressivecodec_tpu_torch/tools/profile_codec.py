@@ -128,10 +128,10 @@ def round_trip(codec, x, quality: float, ref_y_hat: torch.Tensor) -> int:
     return len(blob)
 
 
-def seeded_image(h: int, w: int, seed: int = 1, batch: int = 1) -> np.ndarray:
-    """A (batch, h, w, 3) float32 batch of images, uniform in [0, 1) (JAX's
-    tool draws jax.random.uniform)."""
-    return np.random.default_rng(seed).random((batch, h, w, 3)).astype(np.float32)
+def seeded_image(h: int, w: int, seed: int = 1) -> np.ndarray:
+    """A (1, h, w, 3) float32 image, uniform in [0, 1) (JAX's tool draws
+    jax.random.uniform)."""
+    return np.random.default_rng(seed).random((1, h, w, 3)).astype(np.float32)
 
 
 def _table(rows: dict, key: str) -> str:

@@ -68,7 +68,8 @@ def _roundtrip(codec, x, q):
 def test_port_roundtrip_bit_exact(setup, q):
     codec, _ = setup
     data, _ = _roundtrip(codec, torch.from_numpy(_image(q)), q)
-    assert data["num_bytes"] == 2 * (len(data["stream"]) + len(data["esc"]))
+    (stream,), (esc,) = data["streams"], data["escs"]
+    assert data["groups"] == 1 and data["num_bytes"] == 2 * (len(stream) + len(esc))
 
 
 def test_port_batched_roundtrip(setup):
@@ -102,9 +103,9 @@ def test_compress_from_latent_escapes_roundtrip(setup):
     y = torch.from_numpy(80.0 * np.random.default_rng(3).normal(0, 1, (1, 4, 4, CFG.M)))
     data = codec.compress_from_latent(y.to(torch.float32), (1, 64, 64, 3), quality=10,
                                       simulate=True)
-    assert len(data["esc"]) > 0, "an 80x normal latent must produce escapes"
+    assert len(data["escs"][0]) > 0, "an 80x normal latent must produce escapes"
     back = codec.deserialize(codec.serialize(data))
-    np.testing.assert_array_equal(back["esc"], data["esc"].numpy().view(np.uint16))
+    np.testing.assert_array_equal(back["escs"][0], data["escs"][0].numpy().view(np.uint16))
     out = codec.decompress(back)
     assert out["stream_ok"]
     assert torch.equal(out["y_hat"], data["y_hat"])
@@ -122,9 +123,9 @@ def _capture_port_stages(monkeypatch):
     seen = []
     orig = rans_device.encode_stages
 
-    def spy(stages, t, lanes):
+    def spy(stages, t, lanes, groups=1):
         seen.append([s.numpy() for s, _, _ in stages])
-        return orig(stages, t, lanes)
+        return orig(stages, t, lanes, groups)
 
     monkeypatch.setattr(rans_device, "encode_stages", spy)
     return seen

@@ -1,4 +1,5 @@
-"""PyTorch port vs the JAX package: the PCT1 rANS coder.
+"""PyTorch port vs the JAX package: the PCT1 rANS coder, which is the
+port's PCT1-G coder at one group.
 
 The port's encode phases (the encode scan's plain twin on the CPU) must
 produce streams byte-identical to JAX `rans_device.encode_stages`, to
@@ -69,9 +70,10 @@ def _stages(tables_np, seed, sizes, extreme=False):
 
 def _port_encode(stages, t, lanes):
     st = [tuple(torch.from_numpy(a) for a in s) for s in stages]
-    stream, n_words, esc, n_esc = rans_device.encode_stages(st, t, lanes)
-    return (stream[: int(n_words)].numpy().view(np.uint16),
-            esc[: 2 * int(n_esc)].numpy().view(np.uint16))
+    streams, n_words, escs, n_escs = rans_device.encode_stages(st, t, lanes)
+    assert streams.shape[0] == escs.shape[0] == 1
+    return (streams[0, : int(n_words)].numpy().view(np.uint16),
+            escs[0, : 2 * int(n_escs)].numpy().view(np.uint16))
 
 
 CASES = [(64, (37, 200, 64), False), (64, (1000,), True), (512, (700, 1537), True),
@@ -118,22 +120,22 @@ def test_port_decodes_jax_stream_exactly(tables, lanes, sizes, extreme):
     stages = _stages(ours_np, 7 + lanes + sum(sizes), sizes, extreme)
     jst = [tuple(jnp.asarray(a) for a in s) for s in stages]
     j_stream, j_nw, j_esc, j_ne = jrd.encode_stages(jst, jt, lanes)
-    stream = torch.from_numpy(np.asarray(j_stream)[: int(j_nw)].view(np.int16).copy())
-    esc = torch.from_numpy(np.concatenate([np.asarray(j_esc)[: 2 * int(j_ne)],
-                                           np.zeros(2, np.uint16)]).view(np.int16))
-    dec = rans_device.decoder_init(stream, lanes)
+    streams = torch.from_numpy(np.asarray(j_stream)[: int(j_nw)].view(np.int16).copy())[None]
+    escs = torch.from_numpy(np.concatenate([np.asarray(j_esc)[: 2 * int(j_ne)],
+                                            np.zeros(2, np.uint16)]).view(np.int16))[None]
+    dec = rans_device.decoder_init(streams, lanes)
     for sym, idx, keep in stages:
         ig = rans_device._pad_to_grid(torch.from_numpy(idx), lanes)
         kg = rans_device._pad_to_grid(torch.from_numpy(keep).to(torch.uint8), lanes)
-        states, offset, cums = rans_device.decode_stage_scan(dec, stream, ig, kg, t, lanes)
-        esc_off, vals = rans_device.decode_stage_values(
-            dec.esc_offset, cums, esc, torch.from_numpy(idx), torch.from_numpy(keep), t, lanes
+        states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+        esc_offsets, vals = rans_device.decode_stage_values(
+            dec.esc_offsets, cums, escs, torch.from_numpy(idx), torch.from_numpy(keep), t, lanes
         )
-        dec = rans_device.DecoderState(states, offset, esc_off)
+        dec = rans_device.DecoderState(states, offsets, esc_offsets)
         np.testing.assert_array_equal(vals.numpy(), np.where(keep, sym, 0))
     assert bool(rans_device.stream_ok(dec))
-    assert int(dec.offset) == int(j_nw)
-    assert int(dec.esc_offset) == 2 * int(j_ne)
+    assert int(dec.offsets) == int(j_nw)
+    assert int(dec.esc_offsets) == 2 * int(j_ne)
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +179,10 @@ def test_decode_scan_twin_bit_identical_to_jax(tables, lanes, n):
     ig = jrd._pad_to_grid(jnp.asarray(idx), lanes)
     kg = jrd._pad_to_grid(jnp.asarray(keep), lanes)
     js, jo, jc = jrd.decode_stage_scan(jdec, jnp.asarray(j_stream), ig, kg, jt, lanes)
-    stream = torch.from_numpy(j_stream.view(np.int16).copy())
-    dec = rans_device.decoder_init(stream, lanes)
+    streams = torch.from_numpy(j_stream.view(np.int16).copy())[None]
+    dec = rans_device.decoder_init(streams, lanes)
     ts, to, tc = rans_cuda.rans_decode_scan(
-        dec.states, dec.offset, stream, torch.from_numpy(np.array(ig)),
+        dec.states, dec.offsets, streams, torch.from_numpy(np.array(ig)),
         torch.from_numpy(np.asarray(kg).astype(np.uint8)), t.dec_sf,
     )
     np.testing.assert_array_equal(ts.numpy().view(np.uint32), np.asarray(js))

@@ -1,13 +1,13 @@
 """PyTorch port vs the JAX package: the PCT1-G grouped coder.
 
-  * the port's `encode_stages_grouped` (encode scan twin on the CPU, per-group
-    compaction) gives sub-streams byte-identical to JAX
+  * the port's `encode_stages` at G groups (encode scan twin on the CPU,
+    per-group compaction) gives sub-streams byte-identical to JAX
     `rans_device.encode_stages_grouped` and to `rans_numpy.encode_stages_grouped`,
     escapes included;
-  * the grouped decode twin decodes them to exact values with stream_ok, and
-    its states, offsets and values equal JAX `decode_stage_grouped`'s;
-  * per group, the grouped twin is the single-stream twin on that group's
-    column block;
+  * the decode phases decode them to exact values with stream_ok, and their
+    states, offsets and values equal JAX `decode_stage_grouped`'s;
+  * per group, the coder's path at G groups is its path at one group on
+    that group's column block;
   * lane and group checks.  The CUDA kernel is held to the twin in
     tests/test_torch_port_kernels.py and chip_smoke.py.
 """
@@ -55,7 +55,7 @@ def _stages(tables_np, seed, sizes=((700, 0.8), (130, 1.0))):
 
 
 def _port_encode(stages, t, lanes, groups):
-    return rans_device.encode_stages_grouped(
+    return rans_device.encode_stages(
         [tuple(torch.from_numpy(a) for a in s) for s in stages], t, lanes, groups
     )
 
@@ -86,18 +86,18 @@ def test_grouped_twin_decodes_exactly_and_matches_jax(tables, lanes, groups):
     stages = _stages(ours_np, 100 + lanes + groups)
     streams, n_words, escs, n_escs = _port_encode(stages, t, lanes, groups)
     escs = torch.nn.functional.pad(escs, (0, 2))
-    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    dec = rans_device.decoder_init(streams, lanes)
     js = jnp.asarray(streams.numpy().view(np.uint16))
     je = jnp.asarray(escs.numpy().view(np.uint16))
     jdec = jrd.grouped_decoder_init(js, lanes, groups)
     for sym, idx, keep in stages:
         ig = rans_device._pad_to_grid(torch.from_numpy(idx), lanes)
         kg = rans_device._pad_to_grid(torch.from_numpy(keep).to(torch.uint8), lanes)
-        states, offsets, cums = rans_device.decode_stage_grouped_scan(dec, streams, ig, kg, t, lanes)
-        esc_offsets, vals = rans_device.decode_stage_grouped_values(
-            dec.esc_offsets, cums, escs, torch.from_numpy(idx), torch.from_numpy(keep), t, lanes, groups
+        states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+        esc_offsets, vals = rans_device.decode_stage_values(
+            dec.esc_offsets, cums, escs, torch.from_numpy(idx), torch.from_numpy(keep), t, lanes
         )
-        dec = rans_device.GroupedDecoderState(states, offsets, esc_offsets)
+        dec = rans_device.DecoderState(states, offsets, esc_offsets)
         np.testing.assert_array_equal(vals.numpy(), np.where(keep, sym, 0))
         jdec, jvals = jrd.decode_stage_grouped(jdec, js, je, jnp.asarray(idx), jnp.asarray(keep),
                                                jt, lanes, groups)
@@ -105,45 +105,52 @@ def test_grouped_twin_decodes_exactly_and_matches_jax(tables, lanes, groups):
         np.testing.assert_array_equal(states.numpy().view(np.uint32), np.asarray(jdec.states))
         np.testing.assert_array_equal(offsets.numpy(), np.asarray(jdec.offsets))
         np.testing.assert_array_equal(esc_offsets.numpy(), np.asarray(jdec.esc_offsets))
-    assert bool(rans_device.grouped_stream_ok(dec))
+    assert bool(rans_device.stream_ok(dec))
     np.testing.assert_array_equal(dec.offsets.numpy(), n_words.numpy())
     np.testing.assert_array_equal(dec.esc_offsets.numpy(), 2 * n_escs.numpy())
 
 
 @pytest.mark.parametrize("lanes,groups", [(64, 4), (96, 3), (64, 64)])
 def test_grouped_twin_is_the_single_twin_per_group(tables, lanes, groups):
-    """Group g's decode is the single-stream decode of its own kt lanes."""
+    """Group g's decode at G groups is the coder's decode at one group of
+    its own kt lanes from its own sub-stream: states, offsets, cums,
+    values and escape offsets."""
     ours_np, _, t, _ = tables
     (stage,) = _stages(ours_np, 7 * lanes + groups, ((900, 0.9),))
-    streams, _, _, _ = _port_encode([stage], t, lanes, groups)
-    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    streams, _, escs, _ = _port_encode([stage], t, lanes, groups)
+    escs = torch.nn.functional.pad(escs, (0, 2))
+    dec = rans_device.decoder_init(streams, lanes)
     ig = rans_device._pad_to_grid(torch.from_numpy(stage[1]), lanes)
     kg = rans_device._pad_to_grid(torch.from_numpy(stage[2]).to(torch.uint8), lanes)
-    states, offsets, cums = rans_cuda.rans_decode_scan_grouped_plain(
-        dec.states, dec.offsets, streams, ig, kg, t.dec_sf
-    )
+    states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+    esc_offsets, vals = rans_device.decode_stage_values(
+        dec.esc_offsets, cums, escs, ig.reshape(-1), kg.reshape(-1), t, lanes)
+    vals = vals.reshape(ig.shape)
     kt = lanes // groups
     for g in range(groups):
         cols = slice(g * kt, (g + 1) * kt)
-        s, o, c = rans_cuda.rans_decode_scan_plain(
-            dec.states[cols], dec.offsets[g : g + 1], streams[g], ig[:, cols].contiguous(),
-            kg[:, cols].contiguous(), t.dec_sf,
-        )
+        one = rans_device.decoder_init(streams[g : g + 1], kt)
+        assert torch.equal(one.states, dec.states[cols])
+        ig_g, kg_g = ig[:, cols].contiguous(), kg[:, cols].contiguous()
+        s, o, c = rans_device.decode_stage_scan(one, streams[g : g + 1], ig_g, kg_g, t, kt)
         assert torch.equal(s, states[cols]) and int(o) == int(offsets[g])
         assert torch.equal(c, cums[:, cols])
+        e, v = rans_device.decode_stage_values(
+            one.esc_offsets, c, escs[g : g + 1], ig_g.reshape(-1), kg_g.reshape(-1), t, kt)
+        assert int(e) == int(esc_offsets[g]) and torch.equal(v, vals[:, cols].reshape(-1))
 
 
 def test_grouped_wrapper_takes_the_twin_on_cpu_and_counts_no_launch(tables):
     ours_np, _, t, _ = tables
     streams, _, _, _ = _port_encode(_stages(ours_np, 3), t, 64, 4)
-    dec = rans_device.grouped_decoder_init(streams, 64, 4)
+    dec = rans_device.decoder_init(streams, 64)
     ig = torch.zeros((3, 64), dtype=torch.int32)
     kg = torch.ones((3, 64), dtype=torch.uint8)
-    before = profiling.total("launch:rans_decode_scan_grouped")
-    got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
-    want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    before = profiling.total("launch:rans_decode_scan")
+    got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert profiling.total("launch:rans_decode_scan_grouped") == before
+    assert profiling.total("launch:rans_decode_scan") == before
 
 
 @pytest.mark.parametrize("bad", ["offsets", "lanes_not_multiple", "streams_dtype"])
@@ -160,7 +167,7 @@ def test_grouped_wrapper_rejects_bad_inputs(bad):
     else:
         args["streams"] = args["streams"].to(torch.int32)
     with pytest.raises(ValueError):
-        rans_cuda.rans_decode_scan_grouped(**args)
+        rans_cuda.rans_decode_scan(**args)
 
 
 def test_encode_scan_pads_a_lane_count_off_the_warp(tables):

@@ -7,8 +7,13 @@
     weights;
   * the auto lane policy picks JAX's lane count;
   * a container coded with another group count is refused in both
-    directions, and so is a corrupt lane count.
+    directions, and so is a corrupt lane count;
+  * one container dict at every group count, one stream included: G
+    `streams` and `escs`, the same dict through the bytes, and the words
+    of the stage-level encoder.
 """
+
+import struct
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +28,7 @@ from progressivecodec_tpu.models.torch_import import import_progressive
 
 from test_torch_port_variants import one_torch_thread  # noqa: F401  (autouse)
 
+from progressivecodec_tpu_torch.coder import rans_device
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
@@ -118,3 +124,35 @@ def test_corrupt_grouped_lane_count_refused(setup):
         codec.deserialize(codec.serialize({**data, "lanes": 66}))
     with pytest.raises(ValueError, match="lanes"):
         GranularCodec(model, lanes=66, groups=4, device="cpu")
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_one_container_dict_at_every_group_count(setup, groups, monkeypatch):
+    """`compress` gives the same keys at every G, one stream being G = 1:
+    G `streams` and G `escs`; serialize -> deserialize gives that dict back;
+    and the container's words are those of `rans_device.encode_stages` at G
+    groups on the stages compress coded, per group (n_words, n_esc, words,
+    escape words) after the header."""
+    model, _ = setup
+    codec = GranularCodec(model, lanes=64, groups=groups, device="cpu")
+    seen = []
+    encode = rans_device.encode_stages
+    monkeypatch.setattr(rans_device, "encode_stages", lambda stages, *a: seen.append(stages) or encode(stages, *a))
+    data = codec.compress(_image(64), quality=5)
+    head = {"z_shape", "batch", "quality", "mask_pol", "lanes", "groups"}
+    assert set(data) == head | {"streams", "escs", "num_bytes"}
+    assert data["groups"] == len(data["streams"]) == len(data["escs"]) == groups
+    blob = codec.serialize(data)
+    back = codec.deserialize(blob)
+    assert set(back) == head | {"streams", "escs"} and all(back[k] == data[k] for k in head)
+    for got, want in zip(back["streams"] + back["escs"], data["streams"] + data["escs"]):
+        np.testing.assert_array_equal(got, want.numpy().view(np.uint16))
+
+    (stages,) = seen
+    streams, n_words, escs, n_escs = encode(stages, codec.device_tables, 64, groups)
+    body = b"".join(
+        struct.pack("<II", int(n_words[g]), 2 * int(n_escs[g]))
+        + streams[g, : int(n_words[g])].numpy().view(np.uint16).astype("<u2").tobytes()
+        + escs[g, : 2 * int(n_escs[g])].numpy().view(np.uint16).astype("<u2").tobytes()
+        for g in range(groups))
+    assert blob[19 + len(data["mask_pol"]) :] == body

@@ -80,11 +80,11 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch(tables):
                                                  rans_cuda.rans_encode_scan_plain(sf, kp)))
     _, t = tables
     st = [tuple(torch.from_numpy(a) for a in _stage(tables[0], 300, 1))]
-    stream, n_words, _, _ = rans_device.encode_stages(st, t, 64)
-    dec = rans_device.decoder_init(stream[: int(n_words)], 64)
+    streams, n_words, _, _ = rans_device.encode_stages(st, t, 64)
+    dec = rans_device.decoder_init(streams[:, : int(n_words)], 64)
     ig = rans_device._pad_to_grid(st[0][1], 64)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), 64)
-    rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, t.dec_sf)
+    rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     assert [profiling.total(n) for n in scans] == before
 
 
@@ -107,13 +107,13 @@ def test_encode_scan_wrapper_rejects_bad_inputs(bad):
 @pytest.mark.parametrize("bad", ["stream_dtype", "offset_shape", "lanes"])
 def test_decode_scan_wrapper_rejects_bad_inputs(bad):
     k = 64
-    args = dict(states=torch.zeros(k, dtype=torch.int32), offset=torch.zeros(1, dtype=torch.int32),
-                stream=torch.zeros(10, dtype=torch.int16), idx=torch.zeros((2, k), dtype=torch.int32),
+    args = dict(states=torch.zeros(k, dtype=torch.int32), offsets=torch.zeros(1, dtype=torch.int32),
+                streams=torch.zeros((1, 10), dtype=torch.int16), idx=torch.zeros((2, k), dtype=torch.int32),
                 kp=torch.zeros((2, k), dtype=torch.uint8), dec_sf=torch.zeros(1 << 16, dtype=torch.int32))
     if bad == "stream_dtype":
-        args["stream"] = args["stream"].to(torch.int32)
+        args["streams"] = args["streams"].to(torch.int32)
     elif bad == "offset_shape":
-        args["offset"] = torch.zeros(2, dtype=torch.int32)
+        args["offsets"] = torch.zeros(2, dtype=torch.int32)
     else:
         args["states"] = torch.zeros(k + 1, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -155,15 +155,37 @@ def test_grouped_wrapper_on_cpu_takes_the_twin_at_cluster_shapes(tables, lanes, 
     and count no launch."""
     merged, t = tables
     st = [tuple(torch.from_numpy(a) for a in _stage(merged, 400, groups))]
-    streams, _, _, _ = rans_device.encode_stages_grouped(st, t, lanes, groups)
-    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    streams, _, _, _ = rans_device.encode_stages(st, t, lanes, groups)
+    dec = rans_device.decoder_init(streams, lanes)
     ig = rans_device._pad_to_grid(st[0][1], lanes)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes)
-    before = profiling.total("launch:rans_decode_scan_grouped")
-    got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
-    want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    before = profiling.total("launch:rans_decode_scan")
+    got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
+    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg, t.dec_sf)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert profiling.total("launch:rans_decode_scan_grouped") == before
+    assert profiling.total("launch:rans_decode_scan") == before
+
+
+@pytest.mark.parametrize("groups,lanes,entry", [
+    (1, 32, "stream"), (1, 512, "stream"), (1, 1024, "stream"), (1, 48, "grouped"),
+    (1, 2048, "cluster"), (1, 16384, "grid"), (4, 512, "grouped"), (2, 4096, "cluster"),
+    (16, 512, "grouped")])
+def test_decode_entry_follows_groups_and_lanes(groups, lanes, entry):
+    """One stream of whole warps up to 1,024 lanes takes the one-stream
+    instance; any other G or K the grouped instance: one CTA per group, or
+    a cluster (up to 8 CTAs) or a cooperative grid per group above 1,024
+    lanes."""
+    ctas = rans_cuda.decode_span(lanes // groups)[0]
+    assert rans_cuda.decode_entry(groups, lanes, ctas) == entry
+
+
+def test_twin_table_is_built_by_twin_dec_sf(tables):
+    """dec_sf is the twin's table: CPU tables hold `twin_dec_sf`'s, which a
+    check builds the same way for a twin run on the card (CUDA tables hold
+    the kernel's CompactCdf and no dec_sf: `_decode_on_card`)."""
+    merged, t = tables
+    assert torch.equal(rans_device.twin_dec_sf(merged, "cpu"), t.dec_sf)
+    assert t.dec_sf.shape == (merged.cdf.shape[0] << 16,)
 
 
 # ---------------------------------------------------------------------------
@@ -320,22 +342,24 @@ def _decode_on_card(tables_np, device, lanes, n, seed, rows=None, smem_cap=None,
     """Code one stage on the CPU, decode it with the kernel and the twin."""
     t = rans_device.DeviceTables.from_tables(tables_np, "cpu")
     st = [stage or tuple(torch.from_numpy(a) for a in _stage(tables_np, n, seed))]
-    stream, n_words, _, _ = rans_device.encode_stages(st, t, lanes)
-    stream = stream[: int(n_words)].to(device)
-    dec = rans_device.decoder_init(stream, lanes)
+    streams, n_words, _, _ = rans_device.encode_stages(st, t, lanes)
+    streams = streams[:, : int(n_words)].to(device)
+    dec = rans_device.decoder_init(streams, lanes)
     ig = rans_device._pad_to_grid(st[0][1], lanes).to(device)
     kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), lanes).to(device)
     td = rans_device.DeviceTables.from_tables(tables_np, device)
+    assert td.dec_sf is None
     n0 = profiling.total("launch:rans_decode_scan")
-    got = rans_cuda.rans_decode_scan(dec.states, dec.offset, stream, ig, kg, td.dec_sf, td.compact,
+    got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, td.dec_sf, td.compact,
                                      rows, smem_cap=smem_cap)
     torch.cuda.synchronize()
     assert profiling.total("launch:rans_decode_scan") == n0 + 1
-    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offset, stream, ig, kg, td.dec_sf)
+    want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg,
+                                            rans_device.twin_dec_sf(tables_np, device))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     if n:
-        assert bool(rans_device.stream_ok(rans_device.DecoderState(got[0], got[1], dec.esc_offset)))
+        assert bool(rans_device.stream_ok(rans_device.DecoderState(got[0], got[1], dec.esc_offsets)))
         assert int(got[1]) == int(n_words)
 
 
@@ -403,10 +427,10 @@ def test_decode_kernel_rejects_lanes_it_cannot_run(cuda_device, tables):
         rans_cuda.rans_decode_scan(
             torch.zeros(k, dtype=torch.int32, device=cuda_device),
             torch.zeros(1, dtype=torch.int32, device=cuda_device),
-            torch.zeros(4, dtype=torch.int16, device=cuda_device),
+            torch.zeros((1, 4), dtype=torch.int16, device=cuda_device),
             torch.zeros((1, k), dtype=torch.int32, device=cuda_device),
             torch.zeros((1, k), dtype=torch.uint8, device=cuda_device),
-            torch.zeros(1 << 16, dtype=torch.int32, device=cuda_device),
+            None,
             rans_device.DeviceTables.from_tables(tables[0], cuda_device).compact,
         )
     assert profiling.total("launch:rans_decode_scan") == launches
@@ -480,23 +504,24 @@ def _grouped_on_card(tables_np, device, lanes, groups, n, seed, smem_cap=None):
     kernel and its twin; bit for bit, one launch per stage, stream_ok."""
     t = rans_device.DeviceTables.from_tables(tables_np, "cpu")
     st = [tuple(torch.from_numpy(a) for a in _stage(tables_np, m, seed + m)) for m in (n, n // 3 + 1)]
-    streams, n_words, _, _ = rans_device.encode_stages_grouped(st, t, lanes, groups)
+    streams, n_words, _, _ = rans_device.encode_stages(st, t, lanes, groups)
     streams = streams.to(device)
     td = rans_device.DeviceTables.from_tables(tables_np, device)
-    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    dec_sf = rans_device.twin_dec_sf(tables_np, device)
+    dec = rans_device.decoder_init(streams, lanes)
     for _, idx, keep in st:
         ig = rans_device._pad_to_grid(idx, lanes).to(device)
         kg = rans_device._pad_to_grid(keep.to(torch.uint8), lanes).to(device)
-        n0 = profiling.total("launch:rans_decode_scan_grouped")
-        got = rans_cuda.rans_decode_scan_grouped(dec.states, dec.offsets, streams, ig, kg, td.dec_sf,
-                                                 td.compact, smem_cap=smem_cap)
+        n0 = profiling.total("launch:rans_decode_scan")
+        got = rans_cuda.rans_decode_scan(dec.states, dec.offsets, streams, ig, kg, td.dec_sf,
+                                         td.compact, smem_cap=smem_cap)
         torch.cuda.synchronize()
-        assert profiling.total("launch:rans_decode_scan_grouped") == n0 + 1
-        want = rans_cuda.rans_decode_scan_grouped_plain(dec.states, dec.offsets, streams, ig, kg, td.dec_sf)
+        assert profiling.total("launch:rans_decode_scan") == n0 + 1
+        want = rans_cuda.rans_decode_scan_plain(dec.states, dec.offsets, streams, ig, kg, dec_sf)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-        dec = rans_device.GroupedDecoderState(got[0], got[1], dec.esc_offsets)
-    assert bool(rans_device.grouped_stream_ok(dec))
+        dec = rans_device.DecoderState(got[0], got[1], dec.esc_offsets)
+    assert bool(rans_device.stream_ok(dec))
     assert torch.equal(dec.offsets.cpu(), n_words.to(torch.int32))
 
 
@@ -552,13 +577,39 @@ def test_tiny_codec_families_round_trip_on_card(cuda_device, model_kw, groups):
     model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(1)), strict=True)
     codec = GranularCodec(model, lanes=64, groups=groups)
     x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(2), dtype=torch.float32)
-    scans = ("launch:rans_encode_scan", "launch:rans_decode_scan", "launch:rans_decode_scan_grouped")
+    scans = ("launch:rans_encode_scan", "launch:rans_decode_scan")
     before = [profiling.total(s) for s in scans]
     data = codec.compress(x.to(cuda_device), quality=5, simulate=True)
     out = codec.decompress(codec.deserialize(codec.serialize(data)))
     assert out["stream_ok"]
     assert torch.equal(out["y_hat"], data["y_hat"])
-    enc, dec, grp = (profiling.total(s) - b for s, b in zip(scans, before))
+    enc, dec = (profiling.total(s) - b for s, b in zip(scans, before))
     n_prog = 0 if cfg.name == "cnn" else (1 if model.stacked else cfg.num_prog_slices)
     stages = 1 + (cfg.M // cfg.dim_chunk if cfg.name == "cnn" else cfg.ns0) + n_prog
-    assert (enc, dec, grp) == ((1, stages, 0) if groups == 1 else (1, 0, stages))
+    assert (enc, dec) == (1, stages)
+
+
+@pytest.mark.cuda
+def test_one_group_of_512_lanes_launches_the_one_stream_instance(cuda_device, tables):
+    """At G = 1 and K = 512 (every benchmark cell's decode) the stage runs
+    on the kernel's one-stream instance, <kSmemTable, kGrouped = false,
+    kOneWarp = false, kSpan = 0>, as the profiler's kernel names show."""
+    import re
+
+    tables_np = tables[0]
+    t = rans_device.DeviceTables.from_tables(tables_np, "cpu")
+    st = [tuple(torch.from_numpy(a) for a in _stage(tables_np, 20000, 11))]
+    streams, _, _, _ = rans_device.encode_stages(st, t, 512)
+    streams = streams.to(cuda_device)
+    td = rans_device.DeviceTables.from_tables(tables_np, cuda_device)
+    ig = rans_device._pad_to_grid(st[0][1], 512).to(cuda_device)
+    kg = rans_device._pad_to_grid(st[0][2].to(torch.uint8), 512).to(cuda_device)
+    dec = rans_device.decoder_init(streams, 512)
+    rans_device.decode_stage_scan(dec, streams, ig, kg, td, 512)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rans_device.decode_stage_scan(dec, streams, ig, kg, td, 512)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "rans_decode_scan_kernel" in e.name]
+    assert names and all(re.search(r"rans_decode_scan_kernel<(true|false), false, false, 0>", n)
+                         for n in names), names

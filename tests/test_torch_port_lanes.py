@@ -84,9 +84,9 @@ def _torch(stages):
 def test_single_stream_matches_jax_and_numpy_and_decodes(tables, lanes):
     ours_np, theirs_np, t, jt = tables
     stages = _stages(ours_np, lanes)
-    stream, n_words, esc, n_esc = rans_device.encode_stages(_torch(stages), t, lanes)
-    words = stream[: int(n_words)].numpy().view(np.uint16)
-    esc_w = esc[: 2 * int(n_esc)].numpy().view(np.uint16)
+    streams, n_words, escs, n_esc = rans_device.encode_stages(_torch(stages), t, lanes)
+    words = streams[0, : int(n_words)].numpy().view(np.uint16)
+    esc_w = escs[0, : 2 * int(n_esc)].numpy().view(np.uint16)
     assert len(esc_w) > 0
 
     j_stream, j_nw, j_esc, j_ne = jrd.encode_stages([tuple(jnp.asarray(a) for a in s) for s in stages],
@@ -97,25 +97,25 @@ def test_single_stream_matches_jax_and_numpy_and_decodes(tables, lanes):
     np.testing.assert_array_equal(words, ref[:esc_start])
     np.testing.assert_array_equal(esc_w, ref[esc_start:])
 
-    stream = stream[: int(n_words)]
-    esc = torch.nn.functional.pad(esc[: 2 * int(n_esc)], (0, 2))
-    dec = rans_device.decoder_init(stream, lanes)
+    streams = streams[:, : int(n_words)]
+    escs = torch.nn.functional.pad(escs[:, : 2 * int(n_esc)], (0, 2))
+    dec = rans_device.decoder_init(streams, lanes)
     for (sym, idx, keep), (_, ti, tk) in zip(stages, _torch(stages)):
         ig = rans_device._pad_to_grid(ti, lanes)
         kg = rans_device._pad_to_grid(tk.to(torch.uint8), lanes)
-        states, offset, cums = rans_device.decode_stage_scan(dec, stream, ig, kg, t, lanes)
-        esc_off, vals = rans_device.decode_stage_values(dec.esc_offset, cums, esc, ti, tk, t, lanes)
-        dec = rans_device.DecoderState(states, offset, esc_off)
+        states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+        esc_offsets, vals = rans_device.decode_stage_values(dec.esc_offsets, cums, escs, ti, tk, t, lanes)
+        dec = rans_device.DecoderState(states, offsets, esc_offsets)
         np.testing.assert_array_equal(vals.numpy(), np.where(keep, sym, 0))
     assert bool(rans_device.stream_ok(dec))
-    assert int(dec.offset) == int(n_words) and int(dec.esc_offset) == 2 * int(n_esc)
+    assert int(dec.offsets) == int(n_words) and int(dec.esc_offsets) == 2 * int(n_esc)
 
 
 @pytest.mark.parametrize("lanes,groups", [(4100, 4), (4096, 2)])
 def test_grouped_matches_jax_and_numpy_and_decodes(tables, lanes, groups):
     ours_np, theirs_np, t, jt = tables
     stages = _stages(ours_np, lanes + groups, sizes=(9000, 4200))
-    streams, n_words, escs, n_escs = rans_device.encode_stages_grouped(_torch(stages), t, lanes, groups)
+    streams, n_words, escs, n_escs = rans_device.encode_stages(_torch(stages), t, lanes, groups)
     ref = rans_numpy.encode_stages_grouped(stages, theirs_np, lanes, groups)
     for g in range(groups):
         words = streams[g, : int(n_words[g])].numpy().view(np.uint16)
@@ -128,16 +128,15 @@ def test_grouped_matches_jax_and_numpy_and_decodes(tables, lanes, groups):
     np.testing.assert_array_equal(n_words.numpy(), np.asarray(jnw))
 
     escs = torch.nn.functional.pad(escs, (0, 2))
-    dec = rans_device.grouped_decoder_init(streams, lanes, groups)
+    dec = rans_device.decoder_init(streams, lanes)
     for (sym, _, keep), (_, ti, tk) in zip(stages, _torch(stages)):
         ig = rans_device._pad_to_grid(ti, lanes)
         kg = rans_device._pad_to_grid(tk.to(torch.uint8), lanes)
-        states, offsets, cums = rans_device.decode_stage_grouped_scan(dec, streams, ig, kg, t, lanes)
-        esc_offs, vals = rans_device.decode_stage_grouped_values(dec.esc_offsets, cums, escs, ti, tk, t,
-                                                                 lanes, groups)
-        dec = rans_device.GroupedDecoderState(states, offsets, esc_offs)
+        states, offsets, cums = rans_device.decode_stage_scan(dec, streams, ig, kg, t, lanes)
+        esc_offs, vals = rans_device.decode_stage_values(dec.esc_offsets, cums, escs, ti, tk, t, lanes)
+        dec = rans_device.DecoderState(states, offsets, esc_offs)
         np.testing.assert_array_equal(vals.numpy(), np.where(keep, sym, 0))
-    assert bool(rans_device.grouped_stream_ok(dec))
+    assert bool(rans_device.stream_ok(dec))
     np.testing.assert_array_equal(dec.offsets.numpy(), n_words.numpy())
 
 

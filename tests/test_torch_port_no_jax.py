@@ -40,7 +40,7 @@ def test_port_modules_load_no_jax():
                  "data.openimages", "parallel.distributed", "parallel.mesh",
                  "parallel.sharded_coder", "parallel.tiling", "parallel.sharding",
                  "tools.bench_coder", "tools.profile_codec", "tools.bench_2k", "tools.rd_ladder",
-                 "tools.rem_demo", "tools.rem_flagship", "tools.bd_trajectory", "bench",
+                 "tools.rem_demo", "tools.rem_flagship", "tools.bd_trajectory",
                  "models.stf", "layers.swin"):
         assert f"{PACKAGE}.{must}" in imported, must
     leaked = [m for m in result["loaded"]

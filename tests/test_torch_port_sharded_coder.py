@@ -7,7 +7,7 @@ virtual CPU devices.  With the payloads of tests/test_sharded_coder.py
 which the encode kernel takes padded to a warp):
   * the sharded encoder's per-group streams and escape segments equal
     JAX's `sharded_encode_stages` on a 2-device mesh and the port's
-    single-process `encode_stages_grouped`, byte for byte, on both ranks;
+    single-process `encode_stages(..., groups=2)`, byte for byte, on both ranks;
   * the sharded decode gives the symbols exactly, with stream_ok;
   * `GranularCodec(coder_mesh=...)` writes the containers of
     `GranularCodec(groups=2)`, and each decodes the other's, bit-exact;
@@ -84,7 +84,7 @@ def rank_job(rank, world, workdir):
         stages = [tuple(torch.from_numpy(a) for a in s) for s in _stages(lanes)]
         streams, n_words, escs, n_escs = sharded_encode_stages(stages, t, lanes, mesh)
         padded = torch.nn.functional.pad(escs, (0, 2))
-        dec = rans_device.grouped_decoder_init(streams, lanes, 2)
+        dec = rans_device.decoder_init(streams, lanes)
         values = []
         for sym, idx, keep in stages:
             dec, vals = sharded_decode_stage(dec, streams, padded, idx, keep, t, lanes, mesh)
@@ -183,7 +183,7 @@ def test_sharded_encode_matches_jax(ranks, jax_streams, lanes):
 def test_sharded_encode_matches_single_process_grouped(ranks, lanes):
     t = rans_device.DeviceTables.from_tables(_tables(), "cpu")
     stages = [tuple(torch.from_numpy(a) for a in s) for s in _stages(lanes)]
-    want = rans_device.encode_stages_grouped(stages, t, lanes, 2)
+    want = rans_device.encode_stages(stages, t, lanes, 2)
     for r in ranks:
         got = r["coder"][lanes]
         for key, w in zip(("streams", "n_words", "escs", "n_escs"), want):

@@ -155,8 +155,9 @@ def test_fragment_counts_match_jax(setup, jax_counts, q):
 
 
 def test_grouped_phases(setup):
-    """PCT1-G: the grouped encode holds its prepare and scan as child spans
-    and keeps its own finalize time, and each stage is one grouped scan."""
+    """PCT1-G runs the one-stream phases: one prepare, scan and finalize per
+    encode, one decoder_init, and per stage one decode scan and one values
+    phase over every group; no span of its own."""
     model, _ = setup
     codec = GranularCodec(model, lanes=64, groups=2, device="cpu")
     x = torch.from_numpy(_image(4))
@@ -164,15 +165,12 @@ def test_grouped_phases(setup):
     out, recs = _recorded(lambda: codec.decompress(codec.deserialize(codec.serialize(
         codec.compress(x, quality=10)))))
     assert out["stream_ok"] and torch.equal(out["y_hat"], data["y_hat"])
-    calls = Counter(s.name for s in recs)
-    assert calls["coder:encode_stages_grouped"] == calls["coder:encode_prepare"] == 1
-    assert calls["coder:encode_scan_rev"] == calls["coder:grouped_decoder_init"] == 1
-    assert calls["coder:decode_stage_grouped_scan"] == calls["coder:decode_stage_grouped_values"] \
-        == 1 + CFG.ns0 + 1
-    assert "coder:decode_stage_scan" not in calls and "coder:encode_finalize" not in calls
-    grouped = next(s for s in recs if s.name == "coder:encode_stages_grouped")
-    assert {s.name for s in recs if s.parent == grouped.id} == {"coder:encode_prepare",
-                                                                 "coder:encode_scan_rev"}
+    calls = Counter(s.name for s in recs if s.name.startswith("coder:"))
+    assert calls == {"coder:encode_prepare": 1, "coder:encode_scan_rev": 1, "coder:encode_finalize": 1,
+                     "coder:decoder_init": 1, "coder:decode_stage_scan": 1 + CFG.ns0 + 1,
+                     "coder:decode_stage_values": 1 + CFG.ns0 + 1}
+    coder = {s.id for s in recs if s.name.startswith("coder:")}
+    assert not any(s.parent in coder for s in recs if s.name.startswith("coder:"))
     assert all(v >= 0 for v in profiling.self_ns(recs).values())
 
 
@@ -187,7 +185,7 @@ def test_trace_attribution_innermost_phase():
     union of the counted intervals."""
     trace = {"traceEvents": [
         _x("round_trip", "user_annotation", 0, 1000),
-        _x("coder:encode_stages_grouped", "user_annotation", 100, 400),
+        _x("codec:compress", "user_annotation", 100, 400),
         _x("coder:encode_scan_rev", "user_annotation", 150, 50),
         _x("frag:analyze", "user_annotation", 600, 100, tid=2),  # another thread
         _x("cudaLaunchKernel", "cuda_runtime", 160, 5, correlation=1),
@@ -200,9 +198,9 @@ def test_trace_attribution_innermost_phase():
         _x("late", "kernel", 2010, 10, tid=7, correlation=4),
         _x("orphan", "kernel", 900, 10, tid=7, correlation=9),
     ]}
-    names = ["coder:encode_stages_grouped", "coder:encode_scan_rev", "frag:analyze"]
+    names = ["codec:compress", "coder:encode_scan_rev", "frag:analyze"]
     per, busy = profile_codec.attribute_device_time(trace, names)
-    assert per == {"coder:encode_scan_rev": (0.1, 1), "coder:encode_stages_grouped": (0.04, 1),
+    assert per == {"coder:encode_scan_rev": (0.1, 1), "codec:compress": (0.04, 1),
                    "glue": (0.01, 1)}
     assert busy == pytest.approx(0.13)  # [170, 290] and [700, 710]
 

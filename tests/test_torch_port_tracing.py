@@ -179,8 +179,8 @@ def test_word_counters_equal_the_container(codecs, name):
     for s in recs:
         words.update(s.counts)
     assert 2 * (words["words:payload"] + words["words:escape"]) == data["num_bytes"]
-    assert words["words:payload"] == data["stream"].numel()
-    assert words["words:escape"] == data["esc"].numel()
+    assert words["words:payload"] == sum(w.numel() for w in data["streams"])
+    assert words["words:escape"] == sum(e.numel() for e in data["escs"])
     after = profiling.totals()
     for k in ("words:payload", "words:escape"):
         assert after.get(k, 0) - before.get(k, 0) == words[k]
@@ -193,7 +193,7 @@ def test_spans_off_record_nothing(codecs):
     data, _, out = round_trip(codecs["rate"], image(5), 5.0)
     assert out["stream_ok"]
     assert profiling.spans()[-1:] == last and not profiling.on()
-    assert profiling.total("words:payload") - before == data["stream"].numel()
+    assert profiling.total("words:payload") - before == sum(w.numel() for w in data["streams"])
 
 
 @pytest.mark.parametrize("name", ["channel", "rate"])
