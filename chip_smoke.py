@@ -36,7 +36,10 @@ printing a result:
      q=0.  Each decoded y_hat must equal the encoder's simulated y_hat bit
      for bit, with stream_ok, and the launch counters, zeroed before each
      round trip, must show one encode launch and one decode launch per
-     stage, over every group;
+     stage, over every group, and 8 launches of g_s's transposed
+     convolution (4 in compress with simulate, 4 in decompress) with no
+     `fallback:deconv2d` (every round trip of phases 4, 5, 8 and 10 holds
+     to these);
   5. REM, ModelConfig(name="rate") (N=192, M=640, unrolled, 3 checkpoint
      levels x 10 LatentRateReduction banks), with every bank's zero_out
      weight drawn from N(0, 0.02^2) (seed SEED + 5; zero at init, where
@@ -136,6 +139,15 @@ printing a result:
      init, frozen base unchanged, banks moved), `rem_demo` (20 base and 20
      bank steps) and `bd_trajectory` on phase 7's metrics.jsonl; the
      launches of each tool, zeroed before it and read after it.
+ 12. g_s's transposed convolutions (`ops/deconv_cuda.deconv2d_s2k5`,
+     csrc/deconv.cu) against cuDNN's `F.conv_transpose2d` with TF32 off, rel
+     L2 <= 1e-5, at ragged sizes (both kernel instances) and at g_s's four
+     layer shapes of 768x512 batch 1, 768x512 batch 8 and 2048x1024 batch 1;
+     one `deconv` JSON line per layer shape: the kernel's CUDA-event ms, its
+     float32 bound, the plain version's ms (`deconv2d_subpixel`) and cuDNN's
+     as `library_ms`, the yardstick (the port never calls it there).
+`python3 chip_smoke.py --deconv` runs only phase 12, after building its one
+kernel.
 `python3 chip_smoke.py --ab [--lanes K,...] OTHER_CHECKOUT...` runs only
 `scan_split`, each checkout's own, on other checkouts of the repo and on
 this one, in separate processes ordered others, this, this, others
@@ -736,6 +748,15 @@ def read_launches():
     return tuple(launches_since(n) for n in ("rans_encode_scan", "rans_decode_scan"))
 
 
+def read_deconvs():
+    """(kernel launches, cuDNN fallbacks) of g_s's transposed convolution
+    since `zero_launches`."""
+    from progressivecodec_tpu_torch.utils import profiling
+
+    fallbacks = profiling.total("fallback:deconv2d") - _launch_base.get("fallback:deconv2d", 0)
+    return launches_since("deconv2d"), fallbacks
+
+
 def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None):
     """One checked round trip (an importance map `cust_map` on both sides
     when given); the launch counts are zeroed just before it and read just
@@ -757,6 +778,7 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None
     torch.cuda.synchronize()
     t3 = time.perf_counter()
     enc_n, dec_n = read_launches()
+    deconv_n, fallback_n = read_deconvs()
 
     b = x.shape[0]
     cfg = codec.cfg
@@ -776,12 +798,16 @@ def roundtrip(codec, x, q, label, *, latent=None, want_y_hat=None, cust_map=None
     else:
         want_dec = 1 + cfg.ns0 + (1 if codec.model.stacked else cfg.num_prog_slices)
     require(dec_n == want_dec, f"{label}: {dec_n} decode launches, want {want_dec}")
+    # g_s's four transposed convolutions on the kernel, in compress (simulate)
+    # and in decompress, and none on cuDNN
+    require((deconv_n, fallback_n) == (8, 0),
+            f"{label}: {deconv_n} deconv launches and {fallback_n} cuDNN fallbacks, want 8 and 0")
     n_esc = sum(len(e) for e in back["escs"])
     bpp = 8 * len(blob) / (b * H * W)
     log(f"  {label}: {len(blob)} bytes ({bpp:.4f} bpp), {n_esc // 2} escapes, "
         f"encode {1e3 * (t1 - t0):.1f} ms, decode {1e3 * (t3 - t2):.1f} ms, launches encode={enc_n} "
-        f"decode={dec_n}, stream_ok, y_hat bit-exact")
-    return {"enc": enc_n, "dec": dec_n, "esc": n_esc, "y_hat": out["y_hat"],
+        f"decode={dec_n} deconv={deconv_n}, stream_ok, y_hat bit-exact")
+    return {"enc": enc_n, "dec": dec_n, "deconv": deconv_n, "esc": n_esc, "y_hat": out["y_hat"],
             "bytes": len(blob), "encode_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t3 - t2)}
 
 
@@ -2080,6 +2106,90 @@ def check_tools(dev, smi, run_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+# g_s's four layers (Cin, Cout, input scale over the latent) of the flagship
+# (M=320 into g_s, N=192), and the latents of the benchmark's images
+GS_LAYERS = ((320, 192, 1), (192, 192, 2), (192, 192, 4), (192, 3, 8))
+GS_LATENTS = {"768x512 b1": (1, 32, 48), "768x512 b8": (8, 32, 48), "2048x1024 b1": (1, 64, 128)}
+# rel L2 of the kernel against cuDNN's F.conv_transpose2d in full float32:
+# the same products summed in another order
+DECONV_REL_L2 = 1e-5
+
+
+def check_deconv(dev, smi):
+    """Phase 12: g_s's transposed convolutions on `deconv2d_s2k5` against
+    cuDNN's `F.conv_transpose2d` (TF32 off, deterministic), at ragged sizes
+    and at every g_s layer of the benchmark's images, within rel L2
+    DECONV_REL_L2; then one `deconv` line per layer shape: the kernel's
+    CUDA-event ms, its float32 bound (the larger of the FLOPs at the card's
+    float32 rate and the bytes at the HBM rate), the plain version's ms
+    (`deconv2d_subpixel`, four stride-1 convolutions) and cuDNN's
+    `F.conv_transpose2d` as `library_ms`, the yardstick.  Returns the
+    lines."""
+    import torch.nn.functional as F
+
+    from progressivecodec_tpu_torch.device import set_deterministic
+    from progressivecodec_tpu_torch.ops import deconv_cuda
+    from progressivecodec_tpu_torch.utils.flops import chip_peak_flops
+
+    set_deterministic()
+    peak, note = chip_peak_flops(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def operands(b, cin, cout, h, w):
+        x = torch.randn((b, cin, h, w), device=dev, generator=g)
+        wt = torch.randn((cin, cout, 5, 5), device=dev, generator=g) / (5 * cin ** 0.5)
+        return x, wt, torch.randn((cout,), device=dev, generator=g)
+
+    def lib(x, wt, bias):
+        return F.conv_transpose2d(x, wt, bias, stride=2, padding=2, output_padding=1)
+
+    def check(label, x, wt, bias):
+        got = deconv_cuda.deconv2d_s2k5(x, wt, bias)
+        want = lib(x, wt, bias)
+        torch.cuda.synchronize()
+        err = float((got - want).norm() / want.norm())
+        require(bool(torch.isfinite(got).all()) and err <= DECONV_REL_L2,
+                f"deconv {label}: rel L2 {err:.3g} > {DECONV_REL_L2}")
+        return err
+
+    for b, cin, cout, h, w in ((1, 20, 16, 5, 7), (2, 9, 3, 33, 17), (1, 13, 40, 17, 33),
+                               (3, 192, 192, 9, 20), (1, 1, 1, 1, 1)):
+        err = check(f"ragged {(b, cin, cout, h, w)}", *operands(b, cin, cout, h, w))
+        log(f"  deconv ragged x {(b, cin, h, w)} Cout {cout} ({deconv_cuda.plan(cout)}): "
+            f"rel L2 {err:.3g}")
+
+    lines = []
+    for image, (b, h0, w0) in GS_LATENTS.items():
+        for layer, (cin, cout, sc) in enumerate(GS_LAYERS):
+            h, w = h0 * sc, w0 * sc
+            x, wt, bias = operands(b, cin, cout, h, w)
+            err = check(f"{image} layer {layer}", x, wt, bias)
+            macs = deconv_cuda.macs(b, cin, cout, h, w)
+            nbytes = 4 * (x.numel() + wt.numel() + cout + 4 * b * cout * h * w)
+            bound_ms = 1e3 * max(2 * macs / peak, nbytes / MEM_BYTES_PER_S)
+            reps = max(3, min(50, int(2e11 / macs)))
+            kernel_ms = cuda_time_ms(lambda: deconv_cuda.deconv2d_s2k5(x, wt, bias), reps)
+            plain_ms = cuda_time_ms(lambda: deconv_cuda.deconv2d_subpixel(x, wt, bias), reps)
+            library_ms = cuda_time_ms(lambda: lib(x, wt, bias), reps)
+            line = dict(image=image, layer=layer, batch=b, cin=cin, cout=cout, h=h, w=w,
+                        instance=deconv_cuda.plan(cout),
+                        ctas=deconv_cuda.grid_ctas(deconv_cuda.plan(cout), b, cout, h, w),
+                        gmac=macs / 1e9, rel_l2=err, kernel_ms=kernel_ms, bound_ms=bound_ms,
+                        roofline=bound_ms / kernel_ms, plain_ms=plain_ms, library_ms=library_ms)
+            log("deconv " + json.dumps(line))
+            lines.append(line)
+    for image in GS_LATENTS:
+        rows = [r for r in lines if r["image"] == image]
+        k, lb, p = (sum(r[f] for r in rows) for f in ("kernel_ms", "bound_ms", "library_ms"))
+        log(f"  deconv {image}, g_s's four layers: kernel {k:.3f} ms, bound {lb:.3f} ms "
+            f"({100 * lb / k:.1f}% of {note}), cuDNN {p:.3f} ms, on {smi}")
+    return lines
+
+
 def seeded_model(cfg, dev, seed=SEED):
     from progressivecodec_tpu_torch.models.registry import get_model
     from progressivecodec_tpu_torch.models.weights import init_params
@@ -2133,6 +2243,16 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--deconv"]:
+        from progressivecodec_tpu_torch import build
+
+        smi = nvidia_smi_line()
+        log(f"nvidia-smi: {smi}")
+        for line in build.build(["deconv"])["deconv"].splitlines():
+            if "Used" in line or "spill" in line or "entry function" in line:
+                log(f"  deconv: {line.strip()}")
+        check_deconv(torch.device("cuda"), smi)
+        return 0
     if sys.argv[1:2] == ["--ab"]:
         log(f"nvidia-smi: {nvidia_smi_line()}")
         others, lanes = sys.argv[2:], ()
@@ -2255,6 +2375,9 @@ def main() -> int:
     log(f"  phase 11 launches per tool (encode, decode): {tool_launches}")
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
 
+    log("phase 12: g_s's transposed convolutions")
+    deconv_lines = check_deconv(dev, smi)
+
     kernels = [
         dict(name="rans_encode_scan", route="cuda",
              source="progressivecodec_tpu_torch/csrc/rans_encode.cu",
@@ -2274,7 +2397,10 @@ def main() -> int:
              source="progressivecodec_tpu_torch/csrc/rans_decode.cu",
              replaces="progressivecodec_tpu/coder/rans_device.py:555",
              launches=grouped_counts["dec"], library_ms=None, **grouped_results),
-    ] + spanning
+    ] + spanning + [
+        dict(name="deconv2d_s2k5", route="cuda", source="progressivecodec_tpu_torch/csrc/deconv.cu",
+             replaces=None, launches=main_counts["deconv"], **line) for line in deconv_lines
+    ]
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -27,6 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {
     "rans_encode": "rans_encode.cu",
     "rans_decode": "rans_decode.cu",
+    "deconv": "deconv.cu",
 }
 
 NVCC_FLAGS = [

@@ -19,6 +19,7 @@ from progressivecodec_tpu_torch.coder.tables import merge_tables
 from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.entropy.bottleneck import EntropyBottleneck, build_bottleneck_tables
 from progressivecodec_tpu_torch.entropy.gaussian import build_gaussian_tables
+from progressivecodec_tpu_torch.ops import deconv_cuda
 from progressivecodec_tpu_torch.utils import profiling
 
 TINY = ModelConfig(name="channel", N=32, M=64, dim_chunk=8, division_dimension=(32, 64),
@@ -613,3 +614,184 @@ def test_one_group_of_512_lanes_launches_the_one_stream_instance(cuda_device, ta
     names = [e.name for e in prof.events() if "rans_decode_scan_kernel" in e.name]
     assert names and all(re.search(r"rans_decode_scan_kernel<(true|false), false, false, 0>", n)
                          for n in names), names
+
+
+# ---------------------------------------------------------------------------
+# g_s's transposed convolution (csrc/deconv.cu)
+# ---------------------------------------------------------------------------
+
+# g_s's layers (Cin, Cout, input scale over the latent) and the latents
+# (batch, h, w) of 768x512 at batch 1 and 8 and of 2048x1024
+GS_LAYERS = ((320, 192, 1), (192, 192, 2), (192, 192, 4), (192, 3, 8))
+GS_LATENTS = {"kodak_b1": (1, 32, 48), "kodak_b8": (8, 32, 48), "clic2k_b1": (1, 64, 128)}
+# the kernel against cuDNN in full float32: the same products summed in
+# another order (over Cin * 25 <= 8,000 terms)
+DECONV_REL_L2 = 1e-5
+
+
+def _deconv_operands(device, b, cin, cout, h, w, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, cin, h, w), device=device, generator=g)
+    wt = torch.randn((cin, cout, 5, 5), device=device, generator=g) / (5 * cin ** 0.5)
+    return x, wt, torch.randn((cout,), device=device, generator=g)
+
+
+def _conv_transpose(x, wt, bias):
+    return torch.nn.functional.conv_transpose2d(x, wt, bias, stride=2, padding=2, output_padding=1)
+
+
+@pytest.fixture
+def fp32_card(cuda_device):
+    """The codec's settings: cuDNN in full float32, deterministic."""
+    from progressivecodec_tpu_torch.device import set_deterministic
+
+    set_deterministic()
+    return cuda_device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("image", list(GS_LATENTS))
+@pytest.mark.parametrize("layer", range(4))
+def test_deconv_kernel_matches_cudnn_at_g_s_shapes(fp32_card, image, layer):
+    b, h0, w0 = GS_LATENTS[image]
+    cin, cout, sc = GS_LAYERS[layer]
+    x, wt, bias = _deconv_operands(fp32_card, b, cin, cout, h0 * sc, w0 * sc, layer)
+    n0 = profiling.total("launch:deconv2d")
+    got = deconv_cuda.deconv2d_s2k5(x, wt, bias)
+    want = _conv_transpose(x, wt, bias)
+    assert profiling.total("launch:deconv2d") == n0 + 1
+    assert got.shape == want.shape == (b, cout, 2 * h0 * sc, 2 * w0 * sc)
+    assert float((got - want).norm() / want.norm()) <= DECONV_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cin,cout,h,w", [(1, 20, 16, 5, 7), (2, 9, 3, 33, 17), (1, 13, 40, 17, 33),
+                                            (3, 192, 2, 9, 20), (1, 1, 1, 1, 1), (2, 7, 4, 9, 3)])
+def test_deconv_kernel_matches_cudnn_at_ragged_sizes(fp32_card, b, cin, cout, h, w):
+    """Tiles cut by the map's edge, Cin not a multiple of the 8-channel
+    stage, Cout padded to the instance's tile (both instances); with and
+    without bias."""
+    x, wt, bias = _deconv_operands(fp32_card, b, cin, cout, h, w, h * w)
+    for bb in (bias, None):
+        got = deconv_cuda.deconv2d_s2k5(x, wt, bb)
+        want = _conv_transpose(x, wt, bb)
+        assert float((got - want).norm() / want.norm()) <= DECONV_REL_L2
+
+
+@pytest.mark.cuda
+def test_deconv_is_the_same_bits_every_run_and_autograd_keeps_cudnn(fp32_card):
+    from progressivecodec_tpu_torch.ops import conv
+
+    x, wt, bias = _deconv_operands(fp32_card, 2, 64, 32, 12, 20, 5)
+    f0 = profiling.total("fallback:deconv2d")
+    with torch.no_grad():
+        n0 = profiling.total("launch:deconv2d")
+        first = conv.deconv2d(x, wt, bias)
+        assert all(torch.equal(first, conv.deconv2d(x, wt, bias)) for _ in range(3))
+        assert profiling.total("launch:deconv2d") == n0 + 4
+        assert profiling.total("fallback:deconv2d") == f0
+    wt.requires_grad_(True)
+    got = conv.deconv2d(x, wt, bias)
+    assert profiling.total("launch:deconv2d") == n0 + 4
+    assert profiling.total("fallback:deconv2d") == f0 + 1
+    assert got.grad_fn is not None and torch.equal(got.detach(), _conv_transpose(x, wt.detach(), bias))
+
+
+@pytest.mark.cuda
+def test_deconv_leaves_the_kernel_only_for_the_flop_counter(fp32_card):
+    """A pass-through dispatch mode keeps the kernel; FlopCounterMode takes
+    cuDNN, counts the transposed convolution's FLOPs and one fallback."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from progressivecodec_tpu_torch.ops import conv
+
+    class PassThrough(torch.utils._python_dispatch.TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            return func(*args, **(kwargs or {}))
+
+    x, wt, bias = _deconv_operands(fp32_card, 1, 16, 8, 6, 10, 7)
+    with torch.no_grad():
+        n0, f0 = profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")
+        with PassThrough():
+            got = conv.deconv2d(x, wt, bias)
+        assert (profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")) == (n0 + 1, f0)
+        with FlopCounterMode(display=False) as fc:
+            want = conv.deconv2d(x, wt, bias)
+        assert (profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")) == (n0 + 1, f0 + 1)
+    assert fc.get_total_flops() == 2 * deconv_cuda.macs(1, 16, 8, 6, 10)
+    assert float((got - want).norm() / want.norm()) <= DECONV_REL_L2
+
+
+@pytest.mark.cuda
+def test_deconv_wrapper_rejects_other_geometry(fp32_card):
+    x, wt, bias = _deconv_operands(fp32_card, 1, 8, 16, 4, 4, 0)
+    with pytest.raises(ValueError):
+        deconv_cuda.deconv2d_s2k5(x, wt[..., :3, :3].contiguous(), bias)
+    with pytest.raises(ValueError):
+        deconv_cuda.deconv2d_s2k5(x, wt, bias, stride=3)
+    with pytest.raises(ValueError):
+        deconv_cuda.deconv2d_s2k5(x.double(), wt, bias)
+    with pytest.raises(ValueError):
+        deconv_cuda.deconv2d_s2k5(x.transpose(2, 3), wt, bias)
+
+
+@pytest.fixture(scope="module")
+def flagship_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.models.registry import get_model
+    from progressivecodec_tpu_torch.models.weights import init_params
+
+    cfg = ModelConfig()
+    model = get_model(cfg, device="cuda")
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0)), strict=True)
+    codec = GranularCodec(model, lanes=512)
+    codec.update()
+    x = torch.rand((1, 512, 768, 3), generator=torch.Generator().manual_seed(1), dtype=torch.float32)
+    return codec, x.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [0.0, 5.3, 10.0])
+def test_flagship_decompress_on_the_kernel_matches_cudnn(flagship_on_card, monkeypatch, q):
+    """768x512: the same container with and without the kernel, byte for
+    byte; y_hat equal; x_hat within 1e-5 rel L2 of cuDNN's g_s; four kernel
+    launches per decompress, none on cuDNN's path."""
+    from progressivecodec_tpu_torch.ops import conv
+
+    codec, x = flagship_on_card
+
+    def trip():
+        n0, f0 = profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")
+        blob = codec.serialize(codec.compress(x, quality=q))
+        out = codec.decompress(codec.deserialize(blob))
+        assert out["stream_ok"]
+        return (blob, out, profiling.total("launch:deconv2d") - n0,
+                profiling.total("fallback:deconv2d") - f0)
+
+    blob, out, launches, fallbacks = trip()
+    with monkeypatch.context() as m:
+        m.setattr(conv, "_aten_only", lambda *t: True)
+        blob_ref, out_ref, launches_ref, fallbacks_ref = trip()
+    assert blob == blob_ref
+    assert torch.equal(out["y_hat"], out_ref["y_hat"])
+    assert (launches, fallbacks, launches_ref, fallbacks_ref) == (4, 0, 0, 4)
+    err = float((out["x_hat"] - out_ref["x_hat"]).norm() / out_ref["x_hat"].norm())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_stf_round_trip_launches_no_deconv(cuda_device):
+    from progressivecodec_tpu_torch.models.codec_granular import GranularCodec
+    from progressivecodec_tpu_torch.models.registry import get_model
+
+    cfg = ModelConfig(name="stf", N=32, M=64, dim_chunk=8, scale_table=ScaleTableConfig(levels=32))
+    torch.manual_seed(0)
+    model = get_model(cfg, device=cuda_device)  # the constructor's own initialisers
+    codec = GranularCodec(model, lanes=64)
+    x = torch.rand((1, 64, 64, 3), generator=torch.Generator().manual_seed(4), dtype=torch.float32)
+    n0 = profiling.total("launch:deconv2d")
+    out = codec.decompress(codec.deserialize(codec.serialize(codec.compress(x.to(cuda_device), quality=0.0))))
+    assert out["stream_ok"]
+    assert profiling.total("launch:deconv2d") == n0

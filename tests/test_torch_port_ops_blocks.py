@@ -27,7 +27,8 @@ from progressivecodec_tpu_torch.config import ModelConfig, ScaleTableConfig
 from progressivecodec_tpu_torch.layers import blocks
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
 from progressivecodec_tpu_torch.models.weights import from_jax_params, init_params
-from progressivecodec_tpu_torch.ops import conv, math as tmath
+from progressivecodec_tpu_torch.ops import conv, deconv_cuda, math as tmath
+from progressivecodec_tpu_torch.utils import profiling
 
 TOL = 2e-4
 F32 = torch.float32
@@ -108,6 +109,101 @@ def test_pixel_shuffle_matches_jax_channel_order():
     ref = jconv.pixel_shuffle(jnp.asarray(x), 2)
     out = conv.pixel_shuffle(_t(x).permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+# ---------------------------------------------------------------------------
+# g_s's transposed convolution: the card kernel's tap table and weight packing
+# ---------------------------------------------------------------------------
+
+# g_s's four layers (B, Cin, Cout, H, W) at a 4x6 latent, and ragged sizes:
+# maps that no tile divides, Cin not a multiple of the kernel's 8-channel
+# stage, Cout not a multiple of its channel tile
+GS_DECONV_SHAPES = [(1, 320, 192, 4, 6), (1, 192, 192, 8, 12), (1, 192, 192, 16, 24),
+                    (1, 192, 3, 32, 48)]
+RAGGED_DECONV_SHAPES = [(1, 20, 16, 5, 7), (2, 9, 3, 33, 17), (1, 13, 40, 17, 33), (3, 5, 2, 1, 1)]
+
+
+def test_subpixel_taps_cover_each_tap_once_by_the_transposed_index_rule():
+    taps = deconv_cuda.subpixel_taps()
+    assert {p: len(t) for p, t in taps.items()} == {(0, 0): 9, (0, 1): 6, (1, 0): 6, (1, 1): 4}
+    assert sorted((ky, kx) for t in taps.values() for *_, ky, kx in t) == [
+        (ky, kx) for ky in range(5) for kx in range(5)]
+    for (a, b), t in taps.items():
+        assert list(t) == sorted(t)  # dy, then dx, ascending: the kernel's order
+        for dy, dx, ky, kx in t:
+            # input i+dy reaches output 2(i+dy) - padding + ky = 2i + a
+            assert (2 * dy - 2 + ky, 2 * dx - 2 + kx) == (a, b)
+
+
+def test_pack_weight_puts_each_taps_channels_together():
+    w = torch.randn((7, 5, 5, 5), generator=torch.Generator().manual_seed(0))
+    wp = deconv_cuda.pack_weight(w, 8)
+    assert wp.shape == (7, 25, 8) and wp.is_contiguous()
+    for ky in range(5):
+        for kx in range(5):
+            assert torch.equal(wp[:, ky * 5 + kx, :5], w[:, :, ky, kx])
+    assert not wp[:, :, 5:].any()
+
+
+@pytest.mark.parametrize("shape", GS_DECONV_SHAPES + RAGGED_DECONV_SHAPES)
+def test_four_stride_1_convolutions_rebuild_the_transposed_convolution(shape):
+    b, cin, cout, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _t(rng.normal(0, 1, (b, cin, h, w)))
+    wt = _t(rng.normal(0, 1 / (5 * cin ** 0.5), (cin, cout, 5, 5)))
+    bias = _t(rng.normal(0, 1, (cout,)))
+    want = torch.nn.functional.conv_transpose2d(x, wt, bias, stride=2, padding=2, output_padding=1)
+    got = deconv_cuda.deconv2d_subpixel(x, wt, bias)
+    assert got.shape == want.shape == (b, cout, 2 * h, 2 * w)
+    # the same products in another order
+    assert float((got - want).norm() / want.norm()) <= 1e-6
+
+
+def test_cpu_and_autograd_deconvs_launch_nothing():
+    rng = np.random.default_rng(3)
+    x = _t(rng.normal(0, 1, (2, 8, 5, 6)))
+    layer = blocks.Deconv(8, 16, device="cpu")
+    want = torch.nn.functional.conv_transpose2d(x, layer.weight, layer.bias, stride=2, padding=2,
+                                                output_padding=1)
+    n0, f0 = profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")
+    with torch.no_grad():
+        assert torch.equal(layer(x), want)
+    y = layer(x.requires_grad_(True))
+    y.sum().backward()
+    assert torch.equal(y.detach(), want) and x.grad is not None
+    # the CPU's F.conv_transpose2d is the plain path, not a fallback
+    assert (profiling.total("launch:deconv2d"), profiling.total("fallback:deconv2d")) == (n0, f0)
+
+
+class _PassThrough(torch.utils._python_dispatch.TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+def test_autograd_and_dispatch_modes_see_the_deconv_as_aten():
+    """Only autograd and FlopCounterMode take a CUDA deconv off the kernel:
+    any other dispatch mode leaves it there."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x, w = torch.zeros((1, 2, 3, 3)), torch.zeros((2, 2, 5, 5), requires_grad=True)
+    assert conv._aten_only(x, w, None)
+    with torch.no_grad():
+        assert not conv._aten_only(x, w, None)
+        with _PassThrough():
+            assert not conv._aten_only(x, w, None)
+        with FlopCounterMode(display=False):
+            assert conv._aten_only(x, w, None)
+            with _PassThrough():
+                assert conv._aten_only(x, w, None)
+
+
+def test_deconv_plan_by_channels_and_the_first_layer_fills_the_card():
+    assert [deconv_cuda.plan(c) for c in (1, 3, 4, 32, 192)] == ["narrow"] * 2 + ["wide"] * 3
+    # g_s's first layer at 768x512 (a 32x48 latent, 192 channels) on 132 SMs
+    assert deconv_cuda.grid_ctas("wide", 1, 192, 32, 48) >= 132
+    assert deconv_cuda.macs(1, 320, 192, 32, 48) == 2_359_296_000
+    with pytest.raises(ValueError):
+        deconv_cuda.deconv2d_s2k5(torch.zeros((1, 2, 3, 3)), torch.zeros((2, 2, 5, 5)))
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (65, 100), (512, 768), (30, 1)])
