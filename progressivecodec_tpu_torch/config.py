@@ -32,7 +32,7 @@ class ScaleTableConfig:
 class ModelConfig:
     """Architecture knobs for the progressive codec family."""
 
-    name: str = "channel"  # "cnn" | "channel" | "rate" | "stf" (STF: the port alone)
+    name: str = "channel"  # "cnn" | "channel" | "rate" | "stf" | "tcm" (STF, TCM: the port alone)
     N: int = 192
     M: int = 640
     dim_chunk: int = 32

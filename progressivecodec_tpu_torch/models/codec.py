@@ -146,11 +146,13 @@ class Codec:
                 "lanes": lanes, "groups": groups, "streams": streams, "escs": escs}
 
 
-def _stream_capacity(batch: int, z_shape: tuple, cfg: ModelConfig, lanes: int) -> int:
-    """Upper bound on words: header + one word per (padded) symbol."""
+def _stream_capacity(batch: int, z_shape: tuple, z_channels: int, cfg: ModelConfig,
+                     lanes: int) -> int:
+    """Upper bound on words: header + one word per (padded) symbol; z has
+    `z_channels` channels (the model's entropy bottleneck's)."""
     hz, wz = z_shape
     hy, wy = hz * 4, wz * 4
-    n_z = batch * hz * wz * cfg.N
+    n_z = batch * hz * wz * z_channels
     n_slices = cfg.M // cfg.dim_chunk
     padded = 0
     for n in [n_z] + [batch * hy * wy * cfg.dim_chunk] * n_slices:

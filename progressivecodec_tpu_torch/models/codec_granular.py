@@ -3,8 +3,10 @@
 Counterpart of `progressivecodec_tpu/models/codec_granular.py` for
 ChannelProgressiveWACNN (stacked and unrolled enhancement), its REM
 subclass (`models/rem.py`, whose cascade passes `checkpoint_rep`), and the
-single-rate WACNN and STF (`models/stf.py`, which the JAX package lacks),
-on one stream or on G independent sub-streams (PCT1-G, `groups`).
+single-rate WACNN, STF and TCM (`models/stf.py`, `models/tcm.py`, which the
+JAX package lacks), on one stream or on G independent sub-streams (PCT1-G,
+`groups`).  z's channel count is the model's entropy bottleneck's (N, but
+192 for TCM).
 
 The decoder re-derives every CDF index and the enhancement mask from
 sigma, so sigma must have the same bits on the encode and the decode side.
@@ -56,8 +58,7 @@ from progressivecodec_tpu_torch.device import resolve_device, set_deterministic
 from progressivecodec_tpu_torch.models import graphs
 from progressivecodec_tpu_torch.models.codec import Codec, _stream_capacity
 from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN, unstack_channels
-from progressivecodec_tpu_torch.models.stf import SymmetricalTransFormer
-from progressivecodec_tpu_torch.models.wacnn import WACNN
+from progressivecodec_tpu_torch.models.wacnn import SingleRateFragments
 from progressivecodec_tpu_torch.parallel.sharded_coder import (
     sharded_decode_stage,
     sharded_encode_stages,
@@ -96,9 +97,10 @@ class GranularCodec(Codec):
         self.coder_mesh, self.coder_axis = coder_mesh, coder_axis
         if lane_policy not in ("fixed", "auto"):
             raise ValueError(f"lane_policy {lane_policy!r}")
-        if not isinstance(model, (ChannelProgressiveWACNN, WACNN, SymmetricalTransFormer)):
+        if not isinstance(model, (ChannelProgressiveWACNN, SingleRateFragments)):
             raise NotImplementedError(
-                "the port's codec covers ChannelProgressiveWACNN, WACNN and STF (models/registry.py)"
+                "the port's codec covers ChannelProgressiveWACNN and the single-rate WACNN, STF "
+                "and TCM (models/registry.py)"
             )
         device = resolve_device(device)
         set_deterministic()
@@ -106,6 +108,7 @@ class GranularCodec(Codec):
         self.lane_policy = lane_policy
         cfg = self.cfg
         self._progressive = isinstance(model, ChannelProgressiveWACNN)
+        self._z_channels = model.entropy_bottleneck.channels
         self._n_base = cfg.ns0 if self._progressive else cfg.M // cfg.dim_chunk
         self._n_split = cfg.ns1 if self._progressive else cfg.M // cfg.dim_chunk
         self._scale_table = torch.as_tensor(
@@ -130,7 +133,7 @@ class GranularCodec(Codec):
         cfg = self.cfg
         hz, wz = z_shape
         hy, wy = hz * 4, wz * 4
-        n_z = batch * hz * wz * cfg.N
+        n_z = batch * hz * wz * self._z_channels
         n_base = batch * hy * wy * cfg.division_channel
         n_prog = 0
         if self._progressive and quality > 0:
@@ -425,10 +428,10 @@ class GranularCodec(Codec):
         lanes = check_lanes(data.get("lanes", self.lanes), self.groups)
         row0 = self.gauss_row0
         dec_stage, dec = self._stage_decoder(
-            data, lanes, _stream_capacity(batch, (hz, wz), cfg, lanes)
+            data, lanes, _stream_capacity(batch, (hz, wz), self._z_channels, cfg, lanes)
         )
 
-        n = cfg.N
+        n = self._z_channels
         with span("glue:grids"):
             z_idx = torch.arange(n, dtype=I32, device=self.device).expand(batch, hz, wz, n)
         z_vals = dec_stage(z_idx, self._ones(z_idx.numel()), 0)

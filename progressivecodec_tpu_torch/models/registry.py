@@ -7,11 +7,13 @@ from progressivecodec_tpu_torch.config import ModelConfig
 
 def get_model(cfg: ModelConfig, device=None):
     """WACNN for "cnn", ChannelProgressiveWACNN for "channel", its REM
-    subclass PostRateProcessedNetwork for "rate" and STF, the
-    SymmetricalTransFormer, for "stf", on `device` (default `cuda`)."""
+    subclass PostRateProcessedNetwork for "rate", STF, the
+    SymmetricalTransFormer, for "stf" and TCM, the mixed Transformer-CNN
+    codec, for "tcm", on `device` (default `cuda`)."""
     from progressivecodec_tpu_torch.models.progressive import ChannelProgressiveWACNN
     from progressivecodec_tpu_torch.models.rem import PostRateProcessedNetwork
     from progressivecodec_tpu_torch.models.stf import SymmetricalTransFormer
+    from progressivecodec_tpu_torch.models.tcm import TCM
     from progressivecodec_tpu_torch.models.wacnn import WACNN
 
     if cfg.name == "cnn":
@@ -22,4 +24,6 @@ def get_model(cfg: ModelConfig, device=None):
         return PostRateProcessedNetwork(cfg, device=device)
     if cfg.name == "stf":
         return SymmetricalTransFormer(cfg, device=device)
-    raise KeyError(f"unknown model {cfg.name!r} (have: cnn, channel, rate, stf)")
+    if cfg.name == "tcm":
+        return TCM(cfg, device=device)
+    raise KeyError(f"unknown model {cfg.name!r} (have: cnn, channel, rate, stf, tcm)")

@@ -20,7 +20,8 @@ the same way through `load_pth`: it unwraps `{"state_dict": ...}`, strips
 DataParallel's `module.` and drops, by name, the buffers of the reference's
 CompressAI modules that the port does not hold (`REFERENCE_BUFFERS`), all
 of which `Codec.update()` or the configuration determine (the window
-attention's `relative_position_index` follows from the window size).
+attention's `relative_position_index` follows from the window size).  So
+do STF's and TCM's checkpoints (TCM's window attention stores no index).
 `from_jax_module` maps the small modules whose port children carry JAX's
 names (the MaskEstractor, the postnets).
 """

@@ -41,7 +41,7 @@ def test_port_modules_load_no_jax():
                  "parallel.sharded_coder", "parallel.tiling", "parallel.sharding",
                  "tools.bench_coder", "tools.profile_codec", "tools.bench_2k", "tools.rd_ladder",
                  "tools.rem_demo", "tools.rem_flagship", "tools.bd_trajectory",
-                 "models.stf", "layers.swin"):
+                 "models.stf", "layers.swin", "models.tcm", "layers.tcm"):
         assert f"{PACKAGE}.{must}" in imported, must
     leaked = [m for m in result["loaded"]
               if m.split(".")[0] in BANNED or m == "progressivecodec_tpu"
